@@ -140,7 +140,7 @@ class _DecodeGraph:
     """One captured decode step and the static buffers it reads and writes."""
 
     graph: torch.cuda.CUDAGraph
-    cache: dict                   # k, v, lengths: updated in place by replay
+    cache: dict                   # init_cache layout: updated in place by replay
     tokens: torch.Tensor          # (B,) int32 input
     logits: torch.Tensor          # (B, V) f32 output, overwritten by replay
     launches_per_replay: Dict[str, int]

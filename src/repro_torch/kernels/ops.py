@@ -18,9 +18,11 @@ from repro_torch.kernels.decode_attention import decode_attention as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8
 from repro_torch.kernels.int8_matmul import quantize_int8  # noqa: F401 (re-export)
+from repro_torch.kernels.moe_gmm import moe_gmm as _gmm
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6
 
 _WRAPPERS = {"flash_attention": _flash, "decode_attention": _decode,
-             "int8_matmul": _int8}
+             "int8_matmul": _int8, "moe_gmm": _gmm, "rwkv6_scan": _rwkv6}
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, block_q=128,
@@ -34,6 +36,16 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=None, block_s=512):
 
 def int8_matmul(x, w_q, scales, *, block_m=128, block_n=128, block_d=512):
     return _int8(x, w_q, scales)
+
+
+def moe_gmm(x, w, group_sizes=None, *, block_c=128, block_f=128, block_d=256):
+    return _gmm(x, w, group_sizes)
+
+
+def rwkv6_scan(r, k, v, w, u, s0, *, chunk=64, s_out=None):
+    """``s_out``, beyond the JAX package's arguments: where the final state
+    goes (it may be ``s0``, for an in-place update of a decode cache)."""
+    return _rwkv6(r, k, v, w, u, s0, s_out=s_out)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -51,3 +51,30 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *, window=None):
 def int8_matmul_ref(x, w_q, scales):
     out = x.float() @ w_q.float()
     return (out * scales[None, :]).to(x.dtype)
+
+
+def moe_gmm_ref(x, w, group_sizes=None):
+    """x: (E, C, D); w: (E, D, F); rows >= group_sizes[e] count as zero."""
+    xf = x.float()
+    if group_sizes is not None:
+        C = x.shape[1]
+        rows = torch.arange(C, device=x.device)[None, :, None]
+        xf = torch.where(rows < group_sizes[:, None, None], xf, 0.0)
+    return torch.einsum("ecd,edf->ecf", xf, w.float()).to(x.dtype)
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0):
+    """r/k/v/w: (B, H, T, dh); u: (H, dh); s0: (B, H, dh, dh).
+
+    Returns (out (B, H, T, dh) in r's dtype, s_final (B, H, dh, dh) f32),
+    stepping the recurrence of the JAX package's ``rwkv6_wkv_step``.
+    """
+    uf = u.float()
+    s = s0.float()
+    outs = []
+    for t in range(r.shape[2]):
+        r_, k_, v_, w_ = (a[:, :, t].float() for a in (r, k, v, w))
+        kv = k_[..., :, None] * v_[..., None, :]
+        outs.append(torch.einsum("bhi,bhij->bhj", r_, uf[None, :, :, None] * kv + s))
+        s = w_[..., :, None] * s + kv
+    return torch.stack(outs, dim=2).to(r.dtype), s

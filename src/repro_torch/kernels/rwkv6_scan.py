@@ -1,0 +1,83 @@
+"""K5 wrapper: the RWKV6 WKV recurrence (kernel in csrc/rwkv6_scan.cu).
+
+The counterpart of the JAX package's ``kernels/rwkv6_scan.py``: r/k/v/w
+(B, H, T, dh) f32 or bf16, u (H, dh), initial state s0 (B, H, dh, dh); returns
+out (B, H, T, dh) in r's dtype and the final state in f32.  The kernel reads
+r/k/v/w by stride, so (B, H, T, dh) views of the model's (B, T, H, dh)
+projections cost no copy; out is allocated in (B, T, H, dh) memory and
+returned as a (B, H, T, dh) view.  The final state goes to ``s_out`` when it
+is given (it may be ``s0`` itself: the decode cache, updated in place).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {"rwkv6_scan_fwd": ([_P] * 8 + [_I] * 5 + [_L] * 19 + [_P], ctypes.c_int)}
+HEAD_DIMS = (16, 32, 64)
+
+
+def _bht(t: torch.Tensor):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _check_state(name: str, s: torch.Tensor, B: int, H: int, dh: int):
+    if s.shape != (B, H, dh, dh) or s.dtype != torch.float32:
+        raise ValueError(f"rwkv6_scan: {name} must be ({B}, {H}, {dh}, {dh}) float32")
+    if s.stride(3) != 1 or s.stride(2) != dh:
+        raise ValueError(f"rwkv6_scan: each (dh, dh) block of {name} must be contiguous")
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               u: torch.Tensor, s0: torch.Tensor, *, s_out=None):
+    """r/k/v/w: (B, H, T, dh); u: (H, dh); s0: (B, H, dh, dh).
+
+    Returns (out (B, H, T, dh), s_final (B, H, dh, dh) f32).
+    """
+    if r.device.type == "cpu":
+        out, s_final = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+        if s_out is not None:
+            s_out.copy_(s_final)
+            s_final = s_out
+        return out, s_final
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
+    if r.dtype not in build.DTYPE_CODES or any(t.dtype != r.dtype for t in (k, v, w)):
+        raise ValueError("rwkv6_scan: r, k, v, w must share one dtype, float32 or "
+                         f"bfloat16; got {r.dtype} {k.dtype} {v.dtype} {w.dtype}")
+    if r.ndim != 4 or any(t.shape != r.shape for t in (k, v, w)):
+        raise ValueError("rwkv6_scan: r, k, v, w must all be (B, H, T, dh)")
+    B, H, T, dh = r.shape
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan: head dim {dh} not in {HEAD_DIMS}")
+    if u.shape != (H, dh):
+        raise ValueError(f"rwkv6_scan: u must be ({H}, {dh})")
+    u = u.to(torch.float32).contiguous()
+    s0 = s0.to(torch.float32)
+    _check_state("s0", s0, B, H, dh)
+    if s_out is None:
+        s_out = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
+    _check_state("s_out", s_out, B, H, dh)
+    if any(t.device != r.device for t in (k, v, w, u, s0, s_out)):
+        raise ValueError("rwkv6_scan: all operands must be on one device")
+    if any(t.stride(3) != 1 for t in (r, k, v, w)):
+        raise ValueError("rwkv6_scan: the head dim of r, k, v, w must be contiguous")
+    out = torch.empty((B, T, H, dh), dtype=r.dtype, device=r.device).transpose(1, 2)
+    lib = build.library("rwkv6_scan", _SIGNATURES)
+    code = lib.rwkv6_scan_fwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        s0.data_ptr(), out.data_ptr(), s_out.data_ptr(), build.DTYPE_CODES[r.dtype],
+        B, H, T, dh, *_bht(r), *_bht(k), *_bht(v), *_bht(w), *_bht(out),
+        s0.stride(0), s0.stride(1), s_out.stride(0), s_out.stride(1),
+        build.current_stream())
+    build.check(lib, code, "rwkv6_scan")
+    rwkv6_scan.launches += 1
+    return out, s_out
+
+
+rwkv6_scan.launches = 0

@@ -1,10 +1,11 @@
-"""Model assembly, dense and vlm families (decoder-only transformer).
+"""Model assembly: the dense, moe and vlm decoder-only transformers and the
+ssm family (rwkv6).
 
 The counterpart of the JAX package's ``models/transformer.py``.  Parameters
 are a nested dict of tensors with the JAX package's keys, each layer leaf
 stacked on a leading (L, ...) axis; the layers run as a Python loop over
-views of those leaves.  The moe, ssm, hybrid and audio families come with
-their own slices and raise ``NotImplementedError`` here.
+views of those leaves.  The hybrid and audio families come with their own
+slices and raise ``NotImplementedError`` here.
 
 Entry points, used by serving:
   init_params(cfg, seed, device)             -> params
@@ -14,25 +15,26 @@ Entry points, used by serving:
   prefill(params, cfg, batch, max_seq)       -> (logits_last, cache)
   decode_step(params, cfg, cache, tokens)    -> (logits, cache)
 
-``decode_step`` writes the new kv entries into the cache tensors in place
-(the counterpart of the JAX package donating its cache) and never reads a
-device value on the host, so a CUDA graph can capture it.
+``decode_step`` writes the new kv entries (or, for ssm, the WKV state and
+the token shifts) into the cache tensors in place (the counterpart of the
+JAX package donating its cache) and never reads a device value on the host,
+so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.devices import resolve_device
-from repro_torch.models import layers, rope
+from repro_torch.models import layers, moe, rope, ssm
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.serving.formats import QTensor
 
-SUPPORTED_FAMILIES = ("dense", "vlm")
+SUPPORTED_FAMILIES = ("dense", "moe", "vlm", "ssm")
 
 
 def _check_family(cfg: ModelConfig):
@@ -66,15 +68,44 @@ def _attn_specs(cfg: ModelConfig):
     return p
 
 
-def _stack(specs, n: int):
+class Leaf(NamedTuple):
+    """How one parameter is made."""
+
+    shape: tuple
+    init: str                             # normal | ones | zeros | full
+    scale: Optional[float] = None         # std of normal, the value of full
+    dtype: Optional[torch.dtype] = None   # None: the model's dtype
+    layers: int = 0                       # > 0: stacked on a leading (L, ...) axis
+
+
+def _leaves(specs, n: int = 0):
+    """Module specs ((shape, init, scale[, dtype]) tuples) as Leafs, stacked
+    on a leading axis of ``n`` layers when n > 0."""
     if isinstance(specs, dict):
-        return {k: _stack(v, n) for k, v in specs.items()}
-    shape, init, scale = specs
-    return ((n, *shape), init, scale)
+        return {k: _leaves(v, n) for k, v in specs.items()}
+    shape, init, scale, *dtype = specs
+    return Leaf((n, *shape) if n else tuple(shape), init, scale,
+                dtype[0] if dtype else None, n)
+
+
+def _layer_specs(cfg: ModelConfig):
+    D = cfg.d_model
+    if cfg.family == "ssm":
+        return ssm.rwkv6_layer_specs(D, cfg.d_ff, cfg.ssm_head_dim)
+    layer = {
+        "ln1": ((D,), "ones", None),
+        "ln2": ((D,), "ones", None),
+        "attn": _attn_specs(cfg),
+    }
+    if cfg.is_moe:
+        layer["moe_block"] = moe.moe_block_specs(cfg)
+    else:
+        layer["mlp"] = layers.mlp_specs(D, cfg.d_ff, cfg.mlp)
+    return layer
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """{key: (shape, init, scale)} with the JAX package's tree, shapes and scales."""
+    """{key: Leaf} with the JAX package's tree, shapes, dtypes and scales."""
     _check_family(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     specs: Dict[str, Any] = {
@@ -83,13 +114,8 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((D, V), "normal", D ** -0.5)
-    layer = {
-        "ln1": ((D,), "ones", None),
-        "ln2": ((D,), "ones", None),
-        "attn": _attn_specs(cfg),
-        "mlp": layers.mlp_specs(D, cfg.d_ff, cfg.mlp),
-    }
-    specs["layers"] = _stack(layer, cfg.num_layers)
+    specs = _leaves(specs)
+    specs["layers"] = _leaves(_layer_specs(cfg), cfg.num_layers)
     return specs
 
 
@@ -99,22 +125,35 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     Same tree, shapes and init scales as the JAX package; the numbers differ,
     since the two generators differ.  Tests that compare the two packages
     convert the JAX package's parameters with ``params_from_numpy``.
+
+    A stacked leaf is drawn one layer slab at a time into a tensor of its
+    own dtype, so the float32 temporary is one slab (one layer's (E, D, F)
+    experts at most), not the whole (L, ...) leaf.
     """
     device = resolve_device(device)
-    dtype = cfg.torch_dtype
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+
+    def draw(shape, scale, dtype):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return w.mul_(scale).to(dtype)
 
     def make(spec):
         if isinstance(spec, dict):
             return {k: make(v) for k, v in spec.items()}
-        shape, init, scale = spec
-        if init == "ones":
-            return torch.ones(shape, dtype=dtype, device=device)
-        if init == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=device)
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-        return w.mul_(scale).to(dtype)
+        dtype = spec.dtype or cfg.torch_dtype
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dtype, device=device)
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dtype, device=device)
+        if spec.init == "full":
+            return torch.full(spec.shape, spec.scale, dtype=dtype, device=device)
+        if not spec.layers:
+            return draw(spec.shape, spec.scale, dtype)
+        out = torch.empty(spec.shape, dtype=dtype, device=device)
+        for i in range(spec.layers):
+            out[i] = draw(spec.shape[1:], spec.scale, dtype)
+        return out
 
     return make(param_specs(cfg))
 
@@ -142,7 +181,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:
                                  f"{sorted(spec)}")
             return {k: convert(node[k], spec[k], f"{key}/{k}" if key else k)
                     for k in spec}
-        shape = tuple(spec[0])
+        shape = spec.shape
         if hasattr(node, "wq"):
             out = QTensor(_leaf_to_torch(node.wq, device),
                           _leaf_to_torch(node.scales, device))
@@ -235,16 +274,22 @@ def _self_attention_decode(p, cfg, x, angles, kc, vc, lengths, *, window=None,
     return layers.dense(o.reshape(B, 1, -1), p["wo"])
 
 
+def _ffn(p, cfg: ModelConfig, x):
+    """Returns (out, aux_loss or None)."""
+    if cfg.is_moe:
+        return moe.apply_moe_block(p["moe_block"], x, cfg)
+    return layers.apply_mlp(p["mlp"], x, cfg.mlp), None
+
+
 def _decoder_layer(p, cfg, x, angles, *, window):
-    """Standard pre-norm decoder layer. Returns (x, (k, v))."""
+    """Standard pre-norm decoder layer. Returns (x, (k, v), aux or None)."""
     h, kv = _self_attention_full(
         p["attn"], cfg, layers.rms_norm(x, p["ln1"], cfg.norm_eps),
         angles, window=window,
     )
     x = x + h
-    h = layers.apply_mlp(p["mlp"], layers.rms_norm(x, p["ln2"], cfg.norm_eps),
-                         cfg.mlp)
-    return x + h, kv
+    h, aux = _ffn(p, cfg, layers.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + h, kv, aux
 
 
 # =============================================================================
@@ -283,25 +328,39 @@ def _lm_logits(params, cfg, x, logits_for: str = "all"):
 
 def forward(params, cfg: ModelConfig, batch, *, collect_kv: bool = False,
             logits_for: str = "all"):
-    """Full-sequence scoring. Returns dict(logits, aux_loss [, kv]).
+    """Full-sequence scoring. Returns dict(logits, aux_loss [, kv | state]).
 
     logits_for="last" computes the LM head on the final position only (the
-    prefill path: avoids materializing the (B, S, V) logits tensor).
+    prefill path: avoids materializing the (B, S, V) logits tensor).  With
+    ``collect_kv`` an attention family returns ``kv`` (k, v) each
+    (L, B, S, K, hd), and ssm returns ``state`` {"wkv", "tm_shift",
+    "cm_shift"} stacked over layers.
     """
     _check_family(cfg)
     x = _embed_in(params, cfg, batch)
     B, S, _ = x.shape
-    angles = _rope_angles_for(cfg, batch, B, S, x.device)
-    kvs = []
-    for lp in _layers(params, cfg):
-        x, kv = _decoder_layer(lp, cfg, x, angles, window=cfg.attn_window)
-        if collect_kv:
-            kvs.append(kv)
-    out = {"logits": _lm_logits(params, cfg, x, logits_for),
-           "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
-    if collect_kv:
-        out["kv"] = (torch.stack([k for k, _ in kvs]),
-                     torch.stack([v for _, v in kvs]))  # each (L,B,S,K,hd)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    collected = []
+    if cfg.family == "ssm":
+        for lp in _layers(params, cfg):
+            x, state = ssm.rwkv6_block(lp, x, cfg.ssm_head_dim)
+            if collect_kv:
+                collected.append(state)
+    else:
+        angles = _rope_angles_for(cfg, batch, B, S, x.device)
+        for lp in _layers(params, cfg):
+            x, kv, aux = _decoder_layer(lp, cfg, x, angles, window=cfg.attn_window)
+            if aux is not None:
+                aux_total = aux_total + aux
+            if collect_kv:
+                collected.append(kv)
+    out = {"logits": _lm_logits(params, cfg, x, logits_for), "aux_loss": aux_total}
+    if collect_kv and cfg.family == "ssm":
+        out["state"] = {key: torch.stack([st[key] for st in collected])
+                        for key in ("wkv", "tm_shift", "cm_shift")}
+    elif collect_kv:
+        out["kv"] = (torch.stack([k for k, _ in collected]),
+                     torch.stack([v for _, v in collected]))  # each (L,B,S,K,hd)
     return out
 
 
@@ -312,16 +371,30 @@ def forward(params, cfg: ModelConfig, batch, *, collect_kv: bool = False,
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
                device=None):
-    """Allocate the decode cache for ``batch_size`` slots of ``max_seq``."""
+    """Allocate the decode cache for ``batch_size`` slots of ``max_seq``.
+
+    Attention families: k, v (L, B, max_seq, K, hd).  ssm: the WKV state
+    (L, B, H, hd, hd) f32 and the token shifts (L, B, D); max_seq is unused.
+    """
     _check_family(cfg)
     device = resolve_device(device)
     dt = dtype or cfg.torch_dtype
     B, L = batch_size, cfg.num_layers
+    lengths = torch.zeros((B,), dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        hd = cfg.ssm_head_dim
+        H = cfg.d_model // hd
+        return {
+            "wkv": torch.zeros((L, B, H, hd, hd), dtype=torch.float32, device=device),
+            "tm_shift": torch.zeros((L, B, cfg.d_model), dtype=dt, device=device),
+            "cm_shift": torch.zeros((L, B, cfg.d_model), dtype=dt, device=device),
+            "lengths": lengths,
+        }
     K, hd = cfg.num_kv_heads, cfg.head_dim
     return {
         "k": torch.zeros((L, B, max_seq, K, hd), dtype=dt, device=device),
         "v": torch.zeros((L, B, max_seq, K, hd), dtype=dt, device=device),
-        "lengths": torch.zeros((B,), dtype=torch.int32, device=device),
+        "lengths": lengths,
     }
 
 
@@ -339,15 +412,18 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int, cache=None):
     B, S = src.shape[0], src.shape[1]
     if cache is None:
         cache = init_cache(cfg, B, max_seq, device=src.device)
+    elif (cache["wkv"].shape[1] != B if cfg.family == "ssm"
+          else tuple(cache["k"].shape[1:3]) != (B, max_seq)):
+        raise ValueError(f"prefill: the cache does not hold {B} slots of {max_seq}")
+    if cfg.family == "ssm":
+        for key, value in out["state"].items():
+            cache[key].copy_(value)
     else:
-        if tuple(cache["k"].shape[1:3]) != (B, max_seq):
-            raise ValueError(f"prefill: cache of shape {tuple(cache['k'].shape)} "
-                             f"does not hold {B} slots of {max_seq}")
         cache["k"][:, :, S:].zero_()
         cache["v"][:, :, S:].zero_()
-    k, v = out["kv"]
-    cache["k"][:, :, :S] = k.to(cache["k"].dtype)
-    cache["v"][:, :, :S] = v.to(cache["v"].dtype)
+        k, v = out["kv"]
+        cache["k"][:, :, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :, :S] = v.to(cache["v"].dtype)
     cache["lengths"].fill_(S)
     return out["logits"][:, -1], cache
 
@@ -357,8 +433,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions=None,
     """One decode step for every active slot.
 
     tokens: (B,) int (the previously sampled token). Returns (logits (B, V)
-    f32, cache with lengths += 1); the kv tensors of the returned cache are
-    those of ``cache``, updated in place.
+    f32, cache with lengths += 1); the tensors of the returned cache other
+    than lengths are those of ``cache``, updated in place: the new kv entry
+    of every layer, or for ssm every layer's WKV state and token shifts.
 
     uniform_lengths=True promises every slot is at the same position
     (lockstep decode pools): every slot writes at slot 0's position.
@@ -367,6 +444,17 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions=None,
     lengths = cache["lengths"]
     B = tokens.shape[0]
     x = layers.embed(tokens, params["embed"])[:, None]  # (B,1,D)
+    if cfg.family == "ssm":
+        for i, lp in enumerate(_layers(params, cfg)):
+            state = {key: cache[key][i] for key in ("wkv", "tm_shift", "cm_shift")}
+            # the kernel writes the new WKV state over the old, in place
+            x, new = ssm.rwkv6_block(lp, x, cfg.ssm_head_dim, cache=state,
+                                     state_out=state["wkv"])
+            state["tm_shift"].copy_(new["tm_shift"])
+            state["cm_shift"].copy_(new["cm_shift"])
+        cache = dict(cache, lengths=lengths + 1)
+        return _lm_logits(params, cfg, x)[:, 0], cache
+
     # native sliding window always applies; the long-context window variant
     # only engages for caches past 64k (dense archs stay full-attention at 32k)
     window = cfg.attn_window
@@ -389,8 +477,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions=None,
             uniform=uniform_lengths,
         )
         x = x + h
-        h = layers.apply_mlp(lp["mlp"], layers.rms_norm(x, lp["ln2"], cfg.norm_eps),
-                             cfg.mlp)
+        h, _ = _ffn(lp, cfg, layers.rms_norm(x, lp["ln2"], cfg.norm_eps))
         x = x + h
     cache = dict(cache, lengths=lengths + 1)
     return _lm_logits(params, cfg, x)[:, 0], cache

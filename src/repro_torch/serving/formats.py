@@ -13,13 +13,16 @@ wrote.
                     ``QTensor`` leaves that ``dense()`` sends to the int8
                     kernel.
 
-Fence of a fault in the JAX package: ``save_rsm``'s quantize test also takes
-the stacked norm gains ``layers/ln1`` / ``layers/ln2`` once a model has 8 or
-more layers, and the JAX package then fails in ``forward``.  Here
-``load_rsm(as_qtensor=True)`` returns a ``QTensor`` only for the leaves that
-``dense()`` consumes and dequantizes every other quantized leaf to its
-``orig_dtype``, exactly as ``as_qtensor=False`` does.  The files stay the
-same.
+Fence of two faults in the JAX package.  ``save_rsm``'s quantize test takes
+every 2-D/3-D float leaf with ``shape[-2] >= 8``: (F1) the stacked norm
+gains ``layers/ln1`` / ``layers/ln2`` once a model has 8 or more layers, and
+(F2) rwkv6's projections (``tm/w{r,k,v,g,o}``, ``tm/maa_w1``,
+``tm/decay_w{1,2}``, ``cm/w{k,v,r}``), which its model multiplies with ``@``
+and ``.astype``, not ``dense()``; the JAX package's QTensor path then fails in
+``forward``.  Here ``load_rsm(as_qtensor=True)`` returns a ``QTensor`` only
+for the leaves that ``dense()`` consumes (``MATMUL_LEAVES``) and dequantizes
+every other quantized leaf to its ``orig_dtype``, exactly as
+``as_qtensor=False`` does.  The files stay the same.
 """
 
 from __future__ import annotations
@@ -35,10 +38,13 @@ import torch
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.int8_matmul import quantize_int8
 
-# leaves dense() consumes: the only ones served as QTensor
+# leaves dense() consumes: the only ones served as QTensor (arctic's dense
+# residual MLP included; the moe router and the 4-D expert leaves are never
+# quantized)
 MATMUL_LEAVES = frozenset({
     "attn/wq", "attn/wk", "attn/wv", "attn/wo",
     "mlp/wi", "mlp/wi_gate", "mlp/wi_up", "mlp/wo",
+    "dense_mlp/wi_gate", "dense_mlp/wi_up", "dense_mlp/wo",
 })
 
 

@@ -73,6 +73,50 @@ def test_int8_matmul_kernel(gen, M, D, N, dtype):
                                ref.int8_matmul_ref(x, wq, sc), **tol)
 
 
+@pytest.mark.parametrize("E,C,D,F", [(2, 32, 64, 48), (4, 64, 96, 128), (8, 8, 256, 520),
+                                     (3, 200, 136, 264)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_kernel(gen, E, C, D, F, dtype):
+    x = torch.randn(E, C, D, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(dtype)
+    gs = torch.tensor([0, C, C // 3 + 1, 5, 1, 0, C - 1, 2][:E], dtype=torch.int32,
+                      device="cuda")
+    n = ops.launch_counts()["moe_gmm"]
+    got = ops.moe_gmm(x, w, gs)
+    assert ops.launch_counts()["moe_gmm"] == n + 1
+    tol = dict(atol=5e-2, rtol=5e-2) if dtype == torch.bfloat16 else dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got, ref.moe_gmm_ref(x, w, gs), **tol)
+    torch.testing.assert_close(ops.moe_gmm(x, w), ref.moe_gmm_ref(x, w), **tol)
+    # a strided (E, C, D) view of a larger buffer goes in without a copy
+    buf = torch.randn(E * C + 1, D, generator=gen, device="cuda").to(dtype)
+    xv = buf[: E * C].view(E, C, D)
+    torch.testing.assert_close(ops.moe_gmm(xv, w, gs), ref.moe_gmm_ref(xv, w, gs), **tol)
+
+
+@pytest.mark.parametrize("B,H,T,dh", [(1, 2, 32, 16), (2, 3, 48, 32), (2, 4, 70, 64),
+                                      (3, 2, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_kernel(gen, B, H, T, dh, dtype):
+    def rnd(*shape, scale=0.5):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    # r/k/v/w as (B, H, T, dh) views of (B, T, H, dh) memory, as the model passes them
+    r, k, v = (rnd(B, T, H, dh).to(dtype).transpose(1, 2) for _ in range(3))
+    w = torch.sigmoid(rnd(B, T, H, dh, scale=1.0)).to(dtype).transpose(1, 2)
+    u, s0 = rnd(H, dh, scale=0.3), rnd(B, H, dh, dh, scale=0.1)
+    n = ops.launch_counts()["rwkv6_scan"]
+    out, sf = ops.rwkv6_scan(r, k, v, w, u, s0)
+    assert ops.launch_counts()["rwkv6_scan"] == n + 1
+    want_out, want_sf = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    tol = dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(out, want_out, **tol)
+    torch.testing.assert_close(sf, want_sf, atol=2e-4, rtol=2e-4)
+    # the final state written over the initial one, in place
+    state = s0.clone()
+    ops.rwkv6_scan(r, k, v, w, u, state, s_out=state)
+    torch.testing.assert_close(state, want_sf, atol=2e-4, rtol=2e-4)
+
+
 def test_quantize_int8_same_on_card_and_cpu(gen):
     w = torch.randn(3, 256, 96, generator=gen, device="cuda")
     wq, sc = ops.quantize_int8(w)
@@ -105,3 +149,21 @@ def test_si2_graph_tokens_equal_si1(gen, fmt):
     assert g.launches_per_replay["decode_attention"] == cfg.num_layers
     assert g.launches_per_replay["int8_matmul"] == (6 * cfg.num_layers
                                                     if fmt == "rsm_int8" else 0)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b-smoke", "arctic-480b-smoke", "rwkv6-3b-smoke"])
+def test_si2_graph_tokens_equal_si1_moe_and_ssm(gen, arch):
+    cfg = get_arch(arch)
+    params = quantize_params(T.init_params(cfg, seed=0, device="cuda"))
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    si1 = EagerEngine(cfg, params, 64).generate(prompt, 9)
+    si2_engine = CompiledEngine(cfg, params, 64)
+    si2_engine.warmup(2, 12)
+    si2 = si2_engine.generate(prompt, 9)
+    np.testing.assert_array_equal(si2.tokens, si1.tokens)
+    per_step = si2_engine.graphs[2].launches_per_replay
+    if cfg.family == "ssm":
+        assert per_step["rwkv6_scan"] == cfg.num_layers and per_step["moe_gmm"] == 0
+    else:
+        assert per_step["moe_gmm"] == 3 * cfg.num_layers
+        assert per_step["decode_attention"] == cfg.num_layers

@@ -132,3 +132,35 @@ def test_engine_tokens_are_int32_on_engine_device(served):
     eng = teng.EagerEngine(get_arch(ARCH), ttree, 16, device="cpu")
     assert eng._tokens(_prompt(1, 3)).dtype == torch.int32
     assert eng._tokens(torch.tensor([[1, 2]])).dtype == torch.int32
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b-smoke", "rwkv6-3b-smoke"])
+def test_moe_and_ssm_greedy_tokens_match_reference(arch):
+    """Greedy tokens equal the JAX package's CompiledEngine, and SI2 equals
+    SI1, for the moe and ssm families."""
+    jcfg, cfg = j_get_arch(arch), get_arch(arch)
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    p = T.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    want = jeng.CompiledEngine(jcfg, jp, max_seq=32).generate(prompt, 6)
+    si1 = teng.EagerEngine(cfg, p, max_seq=32, device="cpu").generate(prompt, 6)
+    si2 = teng.CompiledEngine(cfg, p, max_seq=32, device="cpu").generate(prompt, 6)
+    np.testing.assert_array_equal(si1.tokens, want.tokens)
+    np.testing.assert_array_equal(si2.tokens, si1.tokens)
+
+
+def test_ssm_prefill_into_a_used_cache_equals_a_fresh_one():
+    """As for the kv cache: SI2's in-place prefill of an ssm cache leaves
+    nothing of the earlier batch's state or shifts."""
+    cfg = get_arch("rwkv6-3b-smoke")
+    params = T.init_params(cfg, seed=3, device="cpu")
+    long, short = (torch.from_numpy(_prompt(2, S)) for S in (11, 6))
+    _, used = T.prefill(params, cfg, {"tokens": long}, 32)
+    want_l, want = T.prefill(params, cfg, {"tokens": short}, 32)
+    got_l, got = T.prefill(params, cfg, {"tokens": short}, 32, cache=used)
+    assert got is used
+    torch.testing.assert_close(got_l, want_l, rtol=0, atol=0)
+    for key in ("wkv", "tm_shift", "cm_shift", "lengths"):
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="slots"):
+        T.prefill(params, cfg, {"tokens": short[:1]}, 32, cache=used)

@@ -21,9 +21,9 @@ from repro_torch.models import transformer as T
 from repro_torch.serving import formats as tfmt
 
 
-def _twins(layers=2, dtype=None):
-    jcfg = dataclasses.replace(j_get_arch("minitron-4b-smoke"), num_layers=layers)
-    cfg = dataclasses.replace(get_arch("minitron-4b-smoke"), num_layers=layers)
+def _twins(layers=2, dtype=None, arch="minitron-4b-smoke"):
+    jcfg = dataclasses.replace(j_get_arch(arch), num_layers=layers)
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
     jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
     p = T.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     if dtype is not None:
@@ -86,7 +86,19 @@ FORMATS = ["native", "rsm", "rsm_int8"]
 
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_cross_package_load(fmt, tmp_path):
-    _, _, jp, p = _twins()
+    _check_cross_package_load(fmt, "minitron-4b-smoke", tmp_path)
+
+
+# rwkv6 in rsm_int8 loads other leaves by design (the F2 fence, tested below)
+@pytest.mark.parametrize("fmt,arch", [
+    (fmt, arch) for arch in ("arctic-480b-smoke", "rwkv6-3b-smoke")
+    for fmt in FORMATS if (fmt, arch) != ("rsm_int8", "rwkv6-3b-smoke")])
+def test_cross_package_load_moe_and_ssm(fmt, arch, tmp_path):
+    _check_cross_package_load(fmt, arch, tmp_path)
+
+
+def _check_cross_package_load(fmt, arch, tmp_path):
+    _, _, jp, p = _twins(arch=arch)
     jdir, tdir = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
     if fmt != "native":
         jdir, tdir = str(tmp_path / "j"), str(tmp_path / "t")
@@ -161,3 +173,60 @@ def test_quantize_params_equals_disk_round_trip(tmp_path):
     tfmt.save_rsm(p, str(tmp_path / "q"), quantize=True)
     loaded = tfmt.load_rsm(p, str(tmp_path / "q"), as_qtensor=True, device="cpu")
     _assert_same(tfmt.quantize_params(p), loaded)
+
+
+def _quantized_keys(path):
+    manifest = json.loads((path / "manifest.json").read_text())
+    return {k for k, e in manifest["tensors"].items() if e["quantized"]}
+
+
+def _forward_np(mod, params, cfg, toks):
+    if mod is T:
+        return T.forward(params, cfg, {"tokens": torch.from_numpy(toks)})["logits"].numpy()
+    return np.asarray(JT.forward(params, cfg, {"tokens": jnp.asarray(toks)})["logits"])
+
+
+def test_f2_fence_serves_rwkv6_rsm_int8(tmp_path):
+    """The JAX package quantizes eleven rwkv6 projections that its model does
+    not send through dense(), and its QTensor path then fails; the port
+    dequantizes them and serves what the JAX package's dequantized load serves."""
+    jcfg, cfg, jp, p = _twins(arch="rwkv6-3b-smoke")
+    jfmt.save_rsm(jp, str(tmp_path / "q"), quantize=True)
+    assert _quantized_keys(tmp_path / "q") == {
+        f"layers/{k}" for k in ("tm/wr", "tm/wk", "tm/wv", "tm/wg", "tm/wo", "tm/maa_w1",
+                                "tm/decay_w1", "tm/decay_w2", "cm/wk", "cm/wv", "cm/wr")}
+    served = tfmt.load_rsm(p, str(tmp_path / "q"), as_qtensor=True, device="cpu")
+    assert not any(isinstance(leaf, tfmt.QTensor) for leaf in _flat_np(served).values())
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 10)).astype(np.int32)
+    want = _forward_np(JT, jfmt.load_rsm(jp, str(tmp_path / "q"), as_qtensor=False), jcfg, toks)
+    np.testing.assert_allclose(_forward_np(T, served, cfg, toks), want, atol=1e-4, rtol=1e-4)
+    with pytest.raises(AttributeError, match="astype"):
+        JT.forward(jfmt.load_rsm(jp, str(tmp_path / "q"), as_qtensor=True), jcfg,
+                   {"tokens": jnp.asarray(toks)})
+
+
+@pytest.mark.parametrize("arch,quantized", [
+    ("mixtral-8x7b-smoke", {"attn/wq", "attn/wk", "attn/wv", "attn/wo"}),
+    ("arctic-480b-smoke", {"attn/wq", "attn/wk", "attn/wv", "attn/wo",
+                           "moe_block/dense_mlp/wi_gate", "moe_block/dense_mlp/wi_up",
+                           "moe_block/dense_mlp/wo"}),
+])
+def test_moe_rsm_int8_serves_qtensor_leaves(arch, quantized, tmp_path):
+    """Attention and arctic's dense residual load as QTensor (K3 on the GPU)
+    and match the JAX package's QTensor forward; the router and the 4-D
+    expert leaves stay unquantized."""
+    jcfg, cfg, jp, p = _twins(arch=arch)
+    jfmt.save_rsm(jp, str(tmp_path / "q"), quantize=True)
+    assert _quantized_keys(tmp_path / "q") == {f"layers/{k}" for k in quantized}
+    served = tfmt.load_rsm(p, str(tmp_path / "q"), as_qtensor=True, device="cpu")
+    layer = served["layers"]
+    for key in quantized:
+        node = layer
+        for part in key.split("/"):
+            node = node[part]
+        assert isinstance(node, tfmt.QTensor), key
+    assert layer["moe_block"]["moe"]["router"].dtype == torch.float32
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 10)).astype(np.int32)
+    want = _forward_np(JT, jfmt.load_rsm(jp, str(tmp_path / "q"), as_qtensor=True), jcfg, toks)
+    np.testing.assert_allclose(_forward_np(T, served, cfg, toks), want, atol=1e-4, rtol=1e-4)
+    _assert_same(tfmt.quantize_params(p), served)

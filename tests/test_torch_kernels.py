@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.int8_matmul import quantize_int8 as j_quantize
+from repro.models.ssm import rwkv6_wkv_step as j_wkv_step
 from repro_torch.kernels import ops, ref
+from repro_torch.models.ssm import rwkv6_wkv_step
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -119,6 +122,86 @@ def test_quantize_int8_bit_identical(shape, dtype):
     np.testing.assert_array_equal(sc.numpy(), np.asarray(jsc))
 
 
+@pytest.mark.parametrize("E,C,D,F", [(2, 32, 64, 48), (4, 64, 96, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gmm_ref_sweep(E, C, D, F, dtype):
+    """tests/test_kernels.py's sweep: against the JAX oracle and the TPU kernel
+    (interpret mode), ragged group sizes including 0 and C."""
+    jx, x = _pair(9, (E, C, D), dtype)
+    jw, w = _pair(10, (E, D, F), dtype)
+    gs = (np.arange(E, dtype=np.int32) * 13) % (C + 1)
+    gs[-1] = C
+    tol = dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
+    o = ops.moe_gmm(x, w, torch.from_numpy(gs), block_c=16, block_f=32, block_d=32)
+    assert o.dtype == x.dtype and o.shape == (E, C, F)
+    _close(o, jref.moe_gmm_ref(jx, jw, jnp.asarray(gs)), **tol)
+    _close(o, jops.moe_gmm(jx, jw, jnp.asarray(gs), block_c=16, block_f=32, block_d=32),
+           **tol)
+    dead = np.arange(C)[None, :] >= gs[:, None]
+    assert not o.float().numpy()[dead].any()
+
+
+def test_moe_gmm_ref_without_group_sizes():
+    jx, x = _pair(11, (3, 16, 32), "float32")
+    jw, w = _pair(12, (3, 32, 24), "float32")
+    _close(ops.moe_gmm(x, w), jref.moe_gmm_ref(jx, jw), atol=1e-4, rtol=1e-4)
+
+
+def _wkv_inputs(B, H, T, dh, dtype, seed=13):
+    """The sweep's inputs: r/k/v scaled 0.5, w in (0, 1), u 0.3, s0 0.1."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, H, T, dh)).astype(np.float32) * 0.5 for _ in range(3))
+    w = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, H, T, dh)).astype(np.float32)))
+    u = rng.standard_normal((H, dh)).astype(np.float32) * 0.3
+    s0 = rng.standard_normal((B, H, dh, dh)).astype(np.float32) * 0.1
+    jd, td = DTYPES[dtype]
+    jax_in = [jnp.asarray(a).astype(jd) for a in (r, k, v, w)] + [jnp.asarray(u), jnp.asarray(s0)]
+    torch_in = [torch.from_numpy(a).to(td) for a in (r, k, v, w)] + [
+        torch.from_numpy(u), torch.from_numpy(s0)]
+    return jax_in, torch_in
+
+
+@pytest.mark.parametrize("B,H,T,dh", [(1, 2, 32, 16), (2, 3, 48, 32)])
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_rwkv6_scan_ref_sweep(B, H, T, dh, chunk):
+    """tests/test_kernels.py's sweep: against the JAX oracle and the TPU kernel
+    (interpret mode), output and final state at 2e-4."""
+    jin, tin = _wkv_inputs(B, H, T, dh, "float32")
+    o, sf = ops.rwkv6_scan(*tin, chunk=chunk)
+    assert o.shape == (B, H, T, dh) and sf.dtype == torch.float32
+    jo, jsf = jref.rwkv6_scan_ref(*jin)
+    _close(o, jo, atol=2e-4, rtol=2e-4)
+    _close(sf, jsf, atol=2e-4, rtol=2e-4)
+    ko, ksf = jops.rwkv6_scan(*jin, chunk=chunk)
+    _close(o, ko, atol=2e-4, rtol=2e-4)
+    _close(sf, ksf, atol=2e-4, rtol=2e-4)
+
+
+def test_rwkv6_scan_ref_bf16_and_state_in_place():
+    jin, tin = _wkv_inputs(2, 3, 20, 32, "bfloat16", seed=5)
+    jo, jsf = jref.rwkv6_scan_ref(*jin)
+    s0 = tin[5].clone()
+    o, sf = ops.rwkv6_scan(*tin[:5], s0, s_out=s0)
+    assert o.dtype == torch.bfloat16 and sf is s0
+    _close(o, jo, **_tol("bfloat16"))
+    _close(s0, jsf, atol=2e-4, rtol=2e-4)
+
+
+def test_rwkv6_scan_matches_model_step():
+    """The scan agrees with the model's own recurrence in both packages."""
+    jin, tin = _wkv_inputs(1, 2, 16, 8, "float32", seed=19)
+    s, js = torch.zeros((1, 2, 8, 8)), jnp.zeros((1, 2, 8, 8))
+    outs = []
+    for t in range(16):
+        s, o = rwkv6_wkv_step(s, *(a[:, :, t] for a in tin[:2]), tin[2][:, :, t],
+                              tin[3][:, :, t], tin[4])
+        js, jo = j_wkv_step(js, *(a[:, :, t] for a in jin[:4]), jin[4])
+        _close(o, jo, atol=1e-5, rtol=1e-5)
+        outs.append(o)
+    got, _ = ops.rwkv6_scan(*tin[:5], torch.zeros((1, 2, 8, 8)))
+    _close(got, torch.stack(outs, dim=2).numpy(), atol=2e-4, rtol=2e-4)
+
+
 def test_wrappers_reject_other_devices():
     x = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="device"):
@@ -129,6 +212,10 @@ def test_wrappers_reject_other_devices():
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="device"):
         ops.decode_attention(q, q, q, torch.empty((1,), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="device"):
+        ops.moe_gmm(q, q)
+    with pytest.raises(ValueError, match="device"):
+        ops.rwkv6_scan(q, q, q, q, q[0, :, 0], q)
 
 
 def test_launch_counters_untouched_on_cpu():
@@ -136,5 +223,9 @@ def test_launch_counters_untouched_on_cpu():
     _, x = _pair(14, (4, 32), "float32")
     wq, sc = ops.quantize_int8(x.T.contiguous())
     ops.int8_matmul(x, wq, sc)
+    _, x3 = _pair(15, (2, 8, 16), "float32")
+    ops.moe_gmm(x3, x3.transpose(1, 2).contiguous())
+    _, r = _pair(16, (1, 2, 4, 8), "float32")
+    ops.rwkv6_scan(r, r, r, r.sigmoid(), r[0, :, 0], torch.zeros((1, 2, 8, 8)))
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "int8_matmul": 0}
+                                   "int8_matmul": 0, "moe_gmm": 0, "rwkv6_scan": 0}

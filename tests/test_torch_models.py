@@ -16,12 +16,16 @@ import torch
 from repro.configs import get_arch as j_get_arch
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
+from repro.models import moe as jmoe
 from repro.models import rope as jrope
+from repro.models import ssm as jssm
 from repro.models import transformer as JT
 from repro_torch.configs import get_arch
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
+from repro_torch.models import moe as tmoe
 from repro_torch.models import rope as trope
+from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as T
 
 
@@ -161,12 +165,16 @@ def _tokens(cfg, shape, seed=4):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ["minitron-4b-smoke", "qwen3-8b-smoke", "yi-9b-smoke"])
+@pytest.mark.parametrize("arch", ["minitron-4b-smoke", "qwen3-8b-smoke", "yi-9b-smoke",
+                                  "mixtral-8x7b-smoke", "arctic-480b-smoke",
+                                  "rwkv6-3b-smoke"])
 def test_forward_prefill_decode_match_reference(arch, twins):
     jcfg, cfg, jp, p = twins(arch)
     toks = _tokens(cfg, (2, 12))
-    _close(T.forward(p, cfg, {"tokens": torch.from_numpy(toks)})["logits"],
-           JT.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})["logits"], 2e-4)
+    out = T.forward(p, cfg, {"tokens": torch.from_numpy(toks)})
+    jout = JT.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    _close(out["logits"], jout["logits"], 2e-4)
+    _close(out["aux_loss"], jout["aux_loss"], 2e-4)
     jl, jc = JT.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :9])}, max_seq=32)
     tl, tc = T.prefill(p, cfg, {"tokens": torch.from_numpy(toks[:, :9])}, max_seq=32)
     _close(tl, jl, 2e-4)
@@ -175,10 +183,13 @@ def test_forward_prefill_decode_match_reference(arch, twins):
         tl, tc = T.decode_step(p, cfg, tc, torch.from_numpy(toks[:, i]))
         _close(tl, jl, 2e-4)
     np.testing.assert_array_equal(tc["lengths"].numpy(), np.asarray(jc["lengths"]))
-    _close(tc["k"], jc["k"], 2e-4)
+    assert tc.keys() == jc.keys()
+    for key in tc:
+        _close(tc[key], jc[key], 2e-4)
 
 
-@pytest.mark.parametrize("arch", ["minitron-4b-smoke", "qwen3-8b-smoke", "yi-9b-smoke"])
+@pytest.mark.parametrize("arch", ["minitron-4b-smoke", "qwen3-8b-smoke", "yi-9b-smoke",
+                                  "mixtral-8x7b-smoke", "rwkv6-3b-smoke"])
 def test_decode_matches_forward(arch, twins):
     """The serving invariant, as tests/test_arch_smoke.py: stepping the cache
     reproduces full-sequence logits (port only)."""
@@ -237,14 +248,26 @@ def test_long_context_window_engages_past_64k(twins):
 
 
 def test_init_params_tree_matches_reference():
-    for arch in ("minitron-4b-smoke", "qwen3-8b-smoke", "qwen1.5-110b-smoke"):
+    for arch in ("minitron-4b-smoke", "qwen3-8b-smoke", "qwen1.5-110b-smoke",
+                 "mixtral-8x7b-smoke", "arctic-480b-smoke", "rwkv6-3b-smoke"):
         jp = JT.init_params(j_get_arch(arch), jax.random.PRNGKey(0))
         p = T.init_params(get_arch(arch), seed=0, device="cpu")
-        jflat = {jax.tree_util.keystr(k): v.shape
+        jflat = {jax.tree_util.keystr(k): (v.shape, str(v.dtype))
                  for k, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
-        flat = {jax.tree_util.keystr(k): tuple(v.shape)
+        flat = {jax.tree_util.keystr(k): (tuple(v.shape), str(v.dtype)[6:])
                 for k, v in jax.tree_util.tree_flatten_with_path(p)[0]}
-        assert flat == jflat
+        assert flat == jflat, arch
+    # the router stays float32 in a bf16 model; decay_w0 is filled with -6
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b-smoke"), dtype="bfloat16")
+    p = T.init_params(cfg, seed=0, device="cpu")["layers"]
+    assert p["moe_block"]["moe"]["router"].dtype == torch.float32
+    assert p["moe_block"]["moe"]["wi_gate"].dtype == torch.bfloat16
+    wi = p["moe_block"]["moe"]["wi_gate"].float()
+    assert abs(float(wi.std()) - cfg.d_model ** -0.5) < 0.01
+    assert not torch.equal(wi[0], wi[1])   # each layer slab is its own draw
+    p = T.init_params(get_arch("rwkv6-3b-smoke"), seed=0, device="cpu")["layers"]
+    assert torch.equal(p["tm"]["decay_w0"], torch.full_like(p["tm"]["decay_w0"], -6.0))
+    assert abs(float(p["tm"]["u"].std()) - 0.5) < 0.05
     cfg = get_arch("minitron-4b-smoke")
     p = T.init_params(cfg, seed=0, device="cpu")
     assert abs(float(p["layers"]["attn"]["wq"].std()) - cfg.d_model ** -0.5) < 0.01
@@ -264,5 +287,72 @@ def test_params_from_numpy_checks_tree():
 
 
 def test_other_families_not_ported():
-    with pytest.raises(NotImplementedError):
-        T.init_params(get_arch("mixtral-8x7b-smoke"), device="cpu")
+    for arch in ("zamba2-2.7b-smoke", "whisper-small-smoke"):
+        with pytest.raises(NotImplementedError):
+            T.init_params(get_arch(arch), device="cpu")
+
+
+# -- moe and rwkv6 units -------------------------------------------------------------
+
+
+def test_moe_capacity_and_route_match_reference():
+    for args in [(24, 4, 2, 1.0), (4, 8, 2, 1.25), (2048, 8, 2, 1.25), (3, 128, 2, 4.0)]:
+        assert tmoe.capacity(*args) == jmoe.capacity(*args)
+    jx, x = _pair(20, (24, 64))
+    jw, w = _pair(21, (64, 4), 0.3)
+    gates, idx, aux = tmoe.route(w, x, 2)
+    jgates, jidx, jaux = jmoe.route(jw, jx, 2)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    _close(gates, jgates, 1e-5)
+    _close(aux, jaux, 1e-5)
+
+
+@pytest.mark.parametrize("factor", [1.0, 4.0])
+def test_moe_ffn_matches_reference(factor, twins):
+    jcfg, cfg, jp, p = twins("arctic-480b-smoke")
+    jx, x = _pair(22, (2, 12, cfg.d_model))
+    jblock, block = jp["layers"]["moe_block"], p["layers"]["moe_block"]
+    jl = jax.tree.map(lambda a: a[0], jblock)
+    tl = {k: {n: t[0] for n, t in v.items()} for k, v in block.items()}
+    jout, jaux = jmoe.moe_ffn(jl["moe"], jx, experts_per_token=2, capacity_factor=factor)
+    out, aux = tmoe.moe_ffn(tl["moe"], x, experts_per_token=2, capacity_factor=factor)
+    _close(out, jout, 2e-5)
+    _close(aux, jaux, 1e-6)
+    jcfg = dataclasses.replace(jcfg, capacity_factor=factor)
+    cfg = dataclasses.replace(cfg, capacity_factor=factor)
+    _close(tmoe.apply_moe_block(tl, x, cfg)[0], jmoe.apply_moe_block(jl, jx, jcfg)[0], 2e-5)
+
+
+def test_moe_capacity_drops_match_reference(twins):
+    """capacity_factor 1.0 drops tokens in both packages; logits and aux agree."""
+    jcfg, cfg, jp, p = twins("mixtral-8x7b-smoke", capacity_factor=1.0)
+    toks = _tokens(cfg, (4, 12))     # 48 tokens: capacity 24 of 96 routed rows
+    B, S = toks.shape
+    # the first layer's routing already overflows an expert's capacity
+    x = tlayers.rms_norm(tlayers.embed(torch.from_numpy(toks), p["embed"]),
+                         p["layers"]["ln1"][0], cfg.norm_eps)
+    _, idx, _ = tmoe.route(p["layers"]["moe_block"]["moe"]["router"][0],
+                           x.reshape(B * S, -1), cfg.experts_per_token)
+    C = tmoe.capacity(B * S, cfg.num_experts, cfg.experts_per_token, 1.0)
+    assert int(torch.bincount(idx.flatten()).max()) > C
+    out = T.forward(p, cfg, {"tokens": torch.from_numpy(toks)})
+    jout = JT.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    _close(out["logits"], jout["logits"], 2e-4)
+    _close(out["aux_loss"], jout["aux_loss"], 2e-4)
+
+
+def test_rwkv6_time_and_channel_mix_match_reference(twins):
+    jcfg, cfg, jp, p = twins("rwkv6-3b-smoke")
+    jl = jax.tree.map(lambda a: a[1], jp["layers"])
+    tl = T._layer(p["layers"], 1)
+    jx, x = _pair(23, (2, 7, cfg.d_model))
+    jprev, prev = _pair(24, (2, cfg.d_model))
+    js0, s0 = _pair(25, (2, 4, 32, 32), 0.1)
+    jy, (js, jlast) = jssm.rwkv6_time_mix(jl["tm"], jx, 32, state=js0, shift_prev=jprev)
+    y, (st, last) = tssm.rwkv6_time_mix(tl["tm"], x, 32, state=s0, shift_prev=prev)
+    _close(y, jy, 1e-5)
+    _close(st, js, 2e-5)
+    _close(last, jlast, 0)
+    jy, _ = jssm.rwkv6_channel_mix(jl["cm"], jx, shift_prev=jprev)
+    y, _ = tssm.rwkv6_channel_mix(tl["cm"], x, shift_prev=prev)
+    _close(y, jy, 1e-5)
