@@ -5,29 +5,49 @@
 // (body _kernel).  q (B, H, Sq, dh), k/v (B, K, T, dh) in f32 or bf16, read by
 // stride, so the model's (B, S, H, dh) / (B, T, K, dh) activations are read
 // in place with no transpose copy.  Query head h reads kv head h / (H / K).
-// Masks: k < T, k <= q (causal), k > q - window.  q is scaled by dh^-0.5 in
-// float32; running max m, sum l and the accumulator stay in float32; out =
-// acc / max(l, 1e-20) in q's dtype.
+// Masks: k < T, k <= q (causal), k > q - window.  Scores are scaled by
+// dh^-0.5 in float32; running max m, sum l and the accumulator stay in
+// float32; out = acc / max(l, 1e-20) in q's dtype.
 //
 // What bounds it on the H100: 4*Sq*T*dh/2 operations (causal) over
 // (Sq*H + 2*T*K)*dh elements -- at S=512, dh=128 about 60 operations per
-// byte of q/k/v, below the bf16 tensor-core ridge (~295) but far above what
-// the float32 FMA units sustain, so this simple kernel is bound by
-// operations on the CUDA cores.
+// byte of q/k/v, below the bf16 tensor-core ridge (~295): bound by bytes in
+// principle, but only if the products run on the tensor cores; on the CUDA
+// cores (67 TFLOP/s float32) the same work is bound by operations.
 //
-// Design: one block of 256 threads per (64-row q tile, q head, batch).  Four
-// threads share a q row: each computes 16 of the 64 scores of a kv tile as
-// full dot products from shared memory, the row's max and sum are combined
-// with two warp shuffles, and each thread keeps dh/4 output columns of the
-// row in registers.  The block walks kv tiles from the window's first tile to
-// the causal diagonal and no further.  Shared rows are padded by one float so
-// the row-strided reads do not conflict.
-//
-// Left for later work: wgmma on bf16 tiles, TMA loads, a pipeline over kv
-// tiles, and warp specialisation (FlashAttention-3 shape).
+// Two paths; the wrapper (kernels/flash_attention.py:plan) picks one by
+// dtype and layout and says which:
+//   mma  (bf16, every (b, s, head) stride a multiple of 8 elements and
+//        16-byte aligned bases: the model's layouts): FlashAttention-2 on the
+//        tensor cores.  One block of 4 warps per (64-row q tile, q head,
+//        batch), 16 q rows per warp.  Q, K and V tiles stay bf16 in shared
+//        memory (rows padded by 16 bytes so ldmatrix does not conflict), 87 KB
+//        at dh 128, so two blocks share an SM.  K/V tiles arrive through a
+//        double-buffered cp.async ring: tile j+1 loads while tile j computes.
+//        S = Q K^T runs as mma.sync.m16n8k16 bf16 -> f32 with ldmatrix
+//        fragments (Q's fragments stay in registers for the whole block); the
+//        dh^-0.5 scale is applied to S in float32 and the online softmax runs
+//        on the accumulator fragment in registers.  P is rounded to bf16 in
+//        registers and used directly as the A operand of P V: the m16n8k16
+//        accumulator layout of two adjacent 8-column tiles is the A fragment
+//        layout, so P never touches shared memory.  The TPU kernel multiplies
+//        P V in float32; rounding P to bf16 adds at most 2^-9 relative error
+//        per term, inside the 2e-2 bf16 tolerance (l sums the unrounded P).
+//        kv tiles wholly past the causal diagonal or before the window are
+//        skipped; only diagonal, window-edge and T-edge tiles are masked.
+//        The heaviest (last) causal q tiles launch first to shorten the tail.
+//   fma  (f32 always, so the 2e-4 parity tests see true float32; bf16 in a
+//        layout the copies cannot take): one block of 256 threads per (64-row
+//        q tile, q head, batch), four threads per q row, scores as float32
+//        dot products from shared memory (rows padded by one float), the
+//        row's max and sum combined with warp shuffles, dh/4 output columns
+//        of the row per thread.  The block walks kv tiles from the window's
+//        first tile to the causal diagonal and no further.
 #include "common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------- fma path
 
 constexpr int BQ = 64;
 constexpr int BKV = 64;
@@ -186,12 +206,286 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+// ---------------------------------------------------------------- mma path
+
+constexpr int MQ = 64;          // q rows per block, 16 per warp
+constexpr int MKV = 64;         // kv rows per tile
+constexpr int M_THREADS = 128;
+
+template <int DH>
+__host__ __device__ constexpr int mma_stride() { return DH + 8; }  // bf16 per padded row: +16 bytes
+template <int DH>
+__host__ __device__ constexpr int mma_smem_bytes() { return 5 * MQ * mma_stride<DH>() * 2; }  // Q, K x2, V x2
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 2^x (ex2.approx: 2 ulp, +0 at -inf)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// rows [s0, s0 + 64) of one head, dh wide, into a padded tile; rows >= limit
+// are zero-filled by the copy itself
+template <int DH>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                          long long stride_s, int s0, int limit, int tid) {
+  constexpr int CHUNKS = DH / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < MKV * CHUNKS / M_THREADS; ++it) {
+    const int i = tid + it * M_THREADS;
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = s0 + r < limit;
+    const __nv_bfloat16* src = ok ? base + (long long)(s0 + r) * stride_s + c * 8 : base;
+    cp_async16(smem_u32(dst + r * mma_stride<DH>() + c * 8), src, ok);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(M_THREADS)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
+                 int K, int Sq, int T_len, Strides sq, Strides sk, Strides sv, Strides so,
+                 int causal, int window, float scale_log2) {
+  constexpr int STRIDE = mma_stride<DH>();
+  constexpr int TILE = MQ * STRIDE;
+  constexpr int NT = MKV / 8;   // 8-column tiles of S
+  constexpr int OT = DH / 8;    // 8-column tiles of O
+  constexpr int KS = DH / 16;   // k-steps of Q K^T
+  extern __shared__ __align__(16) __nv_bfloat16 fsm[];
+  __nv_bfloat16* Qs = fsm;
+  __nv_bfloat16* Ks = fsm + TILE;      // [2][MKV][STRIDE]
+  __nv_bfloat16* Vs = fsm + 3 * TILE;  // [2][MKV][STRIDE]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * MQ;  // last (heaviest) q tiles first
+  const int kh = h / (H / K);
+  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+  const __nv_bfloat16* kb = k + b * sk.b + kh * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + kh * sv.h;
+
+  // kv range this tile can see: from the window's first key to the diagonal
+  const int kv_end = causal ? min(T_len, q0 + MQ) : T_len;
+  int kv_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+  kv_begin = (kv_begin / MKV) * MKV;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + MKV - 1) / MKV : 0;
+
+  load_tile<DH>(Qs, qb, sq.s, q0, Sq, tid);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_tile<DH>(Ks, kb, sk.s, kv_begin, T_len, tid);
+    load_tile<DH>(Vs, vb, sv.s, kv_begin, T_len, tid);
+  }
+  cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float acc[OT][4];
+#pragma unroll
+  for (int t = 0; t < OT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // per row, in log2 units of the scaled score
+  float l_run[2] = {0.f, 0.f};              // this thread's part of the row sum
+  const int row_lo = q0 + warp * 16 + (lane >> 2);
+  const int i8 = lane >> 3;  // which 8x8 matrix this lane addresses in ldmatrix.x4
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = kv_begin + j * MKV;
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {  // the next tile loads while this one computes
+      load_tile<DH>(Ks + (buf ^ 1) * TILE, kb, sk.s, k0 + MKV, T_len, tid);
+      load_tile<DH>(Vs + (buf ^ 1) * TILE, vb, sv.s, k0 + MKV, T_len, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {  // Q's fragments, kept in registers for every kv tile
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(smem_u32(Qs + (warp * 16 + (i8 & 1) * 8 + (lane & 7)) * STRIDE + ks * 16 +
+                         (i8 >> 1) * 8),
+                qf[ks]);
+    }
+    const __nv_bfloat16* Kt = Ks + buf * TILE;
+    const __nv_bfloat16* Vt = Vs + buf * TILE;
+
+    // S = Q K^T: this warp's 16 rows x 64 keys
+    float s[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kf[4];
+        ldsm_x4(smem_u32(Kt + (np * 16 + (i8 >> 1) * 8 + (lane & 7)) * STRIDE + ks * 16 +
+                         (i8 & 1) * 8),
+                kf);
+        mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+      }
+    }
+
+    // masks, only on tiles that cross the diagonal, the window's edge or T
+    const bool edge = (k0 + MKV > T_len) || (causal && k0 + MKV - 1 > q0) ||
+                      (window >= 0 && k0 <= q0 + MQ - 1 - window);
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[t][e] * scale_log2;
+        if (edge) {
+          const int kp = k0 + t * 8 + (lane & 3) * 2 + (e & 1);
+          const int qp = row_lo + (e >> 1) * 8;
+          bool ok = kp < T_len;
+          if (causal) ok = ok && kp <= qp;
+          if (window >= 0) ok = ok && kp > qp - window;
+          x = ok ? x : -INFINITY;
+        }
+        s[t][e] = x;
+      }
+
+    // online softmax on the fragment: rows row_lo (e = 0, 1) and row_lo + 8
+    // (e = 2, 3); the four threads of a quad share a row
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) mx = fmaxf(mx, fmaxf(s[t][2 * r], s[t][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing seen yet
+      const float alpha = ex2(m_run[r] - m_use);
+      float psum = 0.f;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        s[t][2 * r] = ex2(s[t][2 * r] - m_use);
+        s[t][2 * r + 1] = ex2(s[t][2 * r + 1] - m_use);
+        psum += s[t][2 * r] + s[t][2 * r + 1];
+      }
+      l_run[r] = l_run[r] * alpha + psum;
+      m_run[r] = m_new;
+#pragma unroll
+      for (int t = 0; t < OT; ++t) {
+        acc[t][2 * r] *= alpha;
+        acc[t][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P straight from the S fragment as the bf16 A operand
+#pragma unroll
+    for (int kk = 0; kk < MKV / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t vf[4];
+        ldsm_x4_trans(smem_u32(Vt + (kk * 16 + (i8 & 1) * 8 + (lane & 7)) * STRIDE + dp * 16 +
+                               (i8 >> 1) * 8),
+                      vf);
+        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this tile's buffers are read; the next load may take them
+  }
+  cp_async_wait<0>();  // nothing in flight at exit (no kv tile: Q's copy)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-20f);
+    const int qp = row_lo + r * 8;
+    if (qp >= Sq) continue;
+    __nv_bfloat16* orow = o + b * so.b + (long long)qp * so.s + h * so.h;
+#pragma unroll
+    for (int t = 0; t < OT; ++t)
+      *reinterpret_cast<__nv_bfloat162*>(orow + t * 8 + (lane & 3) * 2) =
+          __floats2bfloat162_rn(acc[t][2 * r] * inv, acc[t][2 * r + 1] * inv);
+  }
+}
+
+template <int DH>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
+               int Sq, int T_len, Strides sq, Strides sk, Strides sv, Strides so, int causal,
+               int window, float scale, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<DH>();
+  static bool configured = false;  // one attribute call per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_mma_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  dim3 grid(H, B, (Sq + MQ - 1) / MQ);
+  flash_mma_kernel<DH><<<grid, M_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, K, Sq, T_len,
+      sq, sk, sv, so, causal, window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// Paths, as kernels/flash_attention.py numbers them.
+#define FLASH_PATH_FMA 0
+#define FLASH_PATH_MMA 1
 
 // Strides are in elements, for the (b, s, head) axes of each tensor; the
 // last axis is contiguous.  window < 0 means no window.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, int dtype, int path, int B,
     int H, int K, int Sq, int T_len, int dh,
     long long sqb, long long sqs, long long sqh,
     long long skb, long long sks, long long skh,
@@ -200,6 +494,16 @@ extern "C" int flash_attention_fwd(
     int causal, int window, float scale, void* stream) {
   const Strides sq{sqb, sqs, sqh}, sk{skb, sks, skh}, sv{svb, svs, svh}, so{sob, sos, soh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == FLASH_PATH_MMA) {
+    if (dtype != REPRO_BF16) return static_cast<int>(cudaErrorInvalidValue);
+    switch (dh) {
+      case 32: return launch_mma<32>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+      case 64: return launch_mma<64>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+      case 128: return launch_mma<128>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (path != FLASH_PATH_FMA) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == REPRO_F32)
     return dispatch_dh<float>(dh, q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
   return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);

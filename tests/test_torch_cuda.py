@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core.engines import CompiledEngine, EagerEngine
+from repro_torch.kernels import flash_attention as k1
+from repro_torch.kernels import int8_matmul as k3
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import attention
@@ -49,6 +51,29 @@ def test_flash_attention_kernel(gen, B, H, K, S, dh, window, dtype):
                                **_tol(dtype))
 
 
+@pytest.mark.parametrize("B,H,K,S,dh,window", [
+    (2, 4, 2, 130, 32, None), (2, 4, 2, 200, 32, 33), (1, 6, 3, 130, 64, 50),
+    (1, 4, 4, 200, 64, None), (2, 8, 2, 130, 128, 64), (1, 4, 1, 200, 128, None),
+    (1, 2, 2, 200, 128, 1)])
+def test_flash_attention_bf16_tensor_cores(gen, B, H, K, S, dh, window):
+    """The mma path: ragged S (tiles past T and the causal diagonal), windows
+    down to 1 (rows whose first kv tiles are wholly masked), GQA."""
+    mk = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+    q = mk(B, S, H, dh).transpose(1, 2)
+    k, v = mk(B, S, K, dh).transpose(1, 2), mk(B, S, K, dh).transpose(1, 2)
+    assert k1.plan_call(q, k, v) == "mma"
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, window=window),
+                               **_tol(torch.bfloat16))
+    # a layout the 16-byte copies cannot take goes to the fma kernel, same result
+    odd = torch.randn(B, S, H, dh + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    qo = odd[..., :dh].transpose(1, 2)
+    assert k1.plan_call(qo, k, v) == "fma"
+    torch.testing.assert_close(ops.flash_attention(qo, k, v, causal=True, window=window),
+                               ref.flash_attention_ref(qo, k, v, window=window),
+                               **_tol(torch.bfloat16))
+
+
 @pytest.mark.parametrize("B,K,G,S,dh", [(1, 1, 4, 64, 32), (3, 4, 1, 96, 64),
                                         (4, 8, 3, 300, 128)])
 @pytest.mark.parametrize("window", [None, 16])
@@ -71,6 +96,48 @@ def test_int8_matmul_kernel(gen, M, D, N, dtype):
     tol = dict(atol=1e-3, rtol=1e-3) if dtype == torch.float32 else _tol(dtype)
     torch.testing.assert_close(ops.int8_matmul(x, wq, sc),
                                ref.int8_matmul_ref(x, wq, sc), **tol)
+
+
+@pytest.mark.parametrize("M,D,N,path", [
+    (1, 3072, 1024, "stream"), (3, 520, 144, "stream"), (8, 4100, 1040, "stream"),
+    (9, 520, 144, "wgmma"), (100, 3072, 1024, "wgmma"), (257, 1000, 384, "wgmma"),
+    (16, 64, 32, "wgmma"), (300, 520, 136, "fma"), (5, 64, 40, "fma")])
+def test_int8_matmul_bf16_paths(gen, M, D, N, path):
+    """Both bf16 regimes with ragged M, N and D, and the shapes they leave to
+    the fma kernel."""
+    x = torch.randn(M, D, generator=gen, device="cuda").to(torch.bfloat16)
+    wq, sc = ops.quantize_int8(torch.randn(D, N, generator=gen, device="cuda") * D ** -0.5)
+    assert k3.plan_call(x, wq).path == path
+    n = ops.launch_counts()["int8_matmul"]
+    got = ops.int8_matmul(x, wq, sc)
+    assert ops.launch_counts()["int8_matmul"] == n + 1
+    torch.testing.assert_close(got, ref.int8_matmul_ref(x, wq, sc), **_tol(torch.bfloat16))
+    # a row-strided view of x (the model's reshape of a wider buffer)
+    buf = torch.randn(M, D + 8, generator=gen, device="cuda").to(torch.bfloat16)
+    xv = buf[:, :D]
+    torch.testing.assert_close(ops.int8_matmul(xv, wq, sc), ref.int8_matmul_ref(xv, wq, sc),
+                               **_tol(torch.bfloat16))
+
+
+def test_int8_matmul_stream_path_in_a_cuda_graph(gen):
+    """The decode path is captured once and replayed on new inputs, as SI2 does."""
+    M, D, N = 4, 3072, 1024
+    wq, sc = ops.quantize_int8(torch.randn(D, N, generator=gen, device="cuda") * D ** -0.5)
+    x = torch.randn(M, D, generator=gen, device="cuda").to(torch.bfloat16)
+    assert k3.plan_call(x, wq).path == "stream" and k3.plan_call(x, wq).splits > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.int8_matmul(x, wq, sc)            # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.int8_matmul(x, wq, sc)
+    for _ in range(3):
+        x.copy_(torch.randn(M, D, generator=gen, device="cuda").to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref.int8_matmul_ref(x, wq, sc), **_tol(torch.bfloat16))
 
 
 @pytest.mark.parametrize("E,C,D,F", [(2, 32, 64, 48), (4, 64, 96, 128), (8, 8, 256, 520),
