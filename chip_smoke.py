@@ -9,12 +9,15 @@ Phases, each printed as one JSON line:
                 at the main paths' shapes (minitron-4b, mixtral-8x7b,
                 rwkv6-3b) and the JAX package's sweep shapes, with its time,
                 bound and the time of one PyTorch library call computing the
-                same function where there is one; K1 and K3 print the path
-                their planner took (mma / wgmma / stream / fma).  Each timed
-                case is timed eagerly (ms, library_ms: CUDA events around the
-                call) and as a CUDA-graph replay (graph_ms, library_graph_ms),
-                with both factors; K3 at (4, 3072, 9216) adds torch.profiler's
-                device time per kernel, and the phase the timing floor
+                same function where there is one; K1, K3 and K4 print the
+                path their planner took (mma / wgmma / stream / fma), K2 its
+                cache splits.  K2 is also timed at the serve's own lengths
+                (513..544) and K4 at the serve's own group sizes (4096 routed
+                rows).  Each timed case is timed eagerly (ms, library_ms:
+                CUDA events around the call) and as a CUDA-graph replay
+                (graph_ms, library_graph_ms), with both factors; K3 at (4,
+                3072, 9216) adds torch.profiler's device time per kernel,
+                and the phase the timing floor
   model_parity  minitron-4b, mixtral-8x7b, arctic-480b and rwkv6-3b -smoke in
                 f32: prefill + 3 decode steps on the card (kernels) against
                 the CPU (plain versions), rsm and rsm_int8; and minitron-4b-
@@ -25,7 +28,9 @@ Phases, each printed as one JSON line:
                 32 do not fit one 80 GB card) and rwkv6-3b (32 layers), bf16,
                 each serving 8 requests through the binary codec with SI1
                 (eager) and SI2 (CUDA graphs); the launch counters, reset
-                before each arch, show the kernels on each path
+                before each arch, show the kernels on each path; then one
+                more prefill of a batch and one SI2 decode step under
+                torch.profiler give the device time per kernel (profile)
   formats       rsm_int8 on disk -> load -> the same tokens as in memory;
                 an 8-layer model serves rsm_int8 behind the norm-gain fence
 Then the kernel summary line, the card's name and power limit, and last
@@ -171,6 +176,50 @@ def device_us(fns: dict, iters: int = 10) -> dict:
             and "fill" not in e.key.lower()}
 
 
+# the port's kernels by their CUDA function names (kernels/csrc/*.cu)
+PORT_KERNEL_PREFIX = {"flash_attention": "flash_", "decode_attention": "decode_",
+                      "int8_matmul": "int8_", "moe_gmm": "gmm_", "rwkv6_scan": "wkv_"}
+
+
+def port_kernel(key: str):
+    """Which port kernel a profiler event belongs to, or None (PyTorch's own)."""
+    for name, prefix in PORT_KERNEL_PREFIX.items():
+        if f"namespace)::{prefix}" in key:
+            return name
+    return None
+
+
+def profile_device_us(fn) -> dict:
+    """torch.profiler over one call of ``fn``: device microseconds summed per
+    port kernel and for PyTorch's own kernels (``other``), their total, the
+    wall time of the profiled call, and the largest of PyTorch's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    by = dict.fromkeys(PORT_KERNEL_PREFIX, 0.0)
+    other = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        name = port_kernel(e.key)
+        if name is None:
+            other[e.key[:70]] = other.get(e.key[:70], 0.0) + us
+        else:
+            by[name] += us
+    by["other"] = sum(other.values())
+    total = sum(by.values())
+    return {"device_us": by, "device_us_total": total, "profiled_wall_us": wall_us,
+            "share": {k: v / total for k, v in by.items()} if total else {},
+            "top_other": dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])}
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -222,12 +271,14 @@ def phase_kernels(seed: int) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import decode_attention as k2
     from repro_torch.kernels import flash_attention as k1
     from repro_torch.kernels import int8_matmul as k3
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
 
     def randn(*shape, dtype):
@@ -268,15 +319,19 @@ def phase_kernels(seed: int) -> dict:
 
     # K2: decode attention over a (B, S, K, dh) cache, ragged lengths
     cases = []
-    # minitron-4b decode, mixtral-8x7b decode (native window 4096), sweep shapes
-    for (B, K, G, S, dh, window) in [(4, 8, 3, 1024, 128, None), (4, 8, 3, 1024, 128, 128),
-                                     (4, 8, 4, 1024, 128, 4096),
-                                     (3, 4, 1, 96, 64, None), (2, 2, 4, 128, 32, None)]:
+    # minitron-4b decode, mixtral-8x7b decode (native window 4096), sweep shapes;
+    # then minitron-4b at the serve phase's own lengths (512-token prompts,
+    # 32 new tokens: 513..544 entries)
+    for (B, K, G, S, dh, window, lens) in [
+            (4, 8, 3, 1024, 128, None, None), (4, 8, 3, 1024, 128, 128, None),
+            (4, 8, 4, 1024, 128, 4096, None),
+            (3, 4, 1, 96, 64, None, None), (2, 2, 4, 128, 32, None, None),
+            (4, 8, 3, 1024, 128, None, [513, 524, 535, 544])]:
         for dtype in (torch.bfloat16, torch.float32):
             q = randn(B, K, G, dh, dtype=dtype)
             kc = randn(B, S, K, dh, dtype=dtype).transpose(1, 2)
             vc = randn(B, S, K, dh, dtype=dtype).transpose(1, 2)
-            lengths = torch.tensor([S, S * 3 // 4 + 9, S // 2 + 1, 100][:B],
+            lengths = torch.tensor(lens or [S, S * 3 // 4 + 9, S // 2 + 1, 100][:B],
                                    dtype=torch.int32, device="cuda")
             got = ops.decode_attention(q, kc, vc, lengths, window=window)
             want = ref.decode_attention_ref(q, kc, vc, lengths, window=window)
@@ -284,7 +339,7 @@ def phase_kernels(seed: int) -> dict:
                               *_tol(dtype))
             case = {"shape": [B, K, G, S, dh], "window": window,
                     "lengths": lengths.tolist(), "dtype": str(dtype)[6:],
-                    "max_abs_err": err}
+                    "splits": k2.plan(B, K, S, sms).splits, "max_abs_err": err}
             if (S, window) == (1024, None):
                 es = q.element_size()
                 n_read = int(lengths.sum())
@@ -357,21 +412,27 @@ def phase_kernels(seed: int) -> dict:
 
 def _moe_gmm_cases(seed: int, randn) -> list:
     """K4 at mixtral-8x7b's prefill (B=4 x 512 tokens, C=640) and decode (4
-    tokens, C=8) shapes with ragged group sizes, and at the JAX package's
-    sweep shapes.  Bound: only the live rows of x and the weights of experts
+    tokens, C=8) shapes with ragged group sizes, at the prefill shapes with
+    the serve's own group sizes, and at the JAX package's sweep shapes.  Bound: only the live rows of x and the weights of experts
     with live rows are read; the whole output is written."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import moe_gmm as k4
     from repro_torch.kernels import ops, ref
 
     rng = np.random.default_rng(seed)
     prefill_gs = rng.integers(0, 641, 8)
     prefill_gs[:2] = (0, 640)                      # an idle and a full expert
     decode_gs = np.array([2, 0, 3, 1, 0, 0, 2, 0])  # 8 routed rows, 4 idle experts
+    # the serve's prefill: 4 x 512 tokens, top-2, so 4096 routed rows over 8
+    # experts, each clamped at the capacity 640 (models/moe.py:capacity)
+    serve_gs = np.minimum(rng.multinomial(4096, [1 / 8] * 8), 640)
     shapes = [  # (E, C, D, F, group sizes, timed or not, f32 tolerance)
         (8, 640, 4096, 14336, prefill_gs, True, 1e-3),   # gate / up, prefill
         (8, 640, 14336, 4096, prefill_gs, True, 1e-3),   # down, prefill
+        (8, 640, 4096, 14336, serve_gs, True, 1e-3),     # gate / up, serve-sized
+        (8, 640, 14336, 4096, serve_gs, True, 1e-3),     # down, serve-sized
         (8, 8, 4096, 14336, decode_gs, True, 1e-3),      # gate / up, decode
         (8, 8, 14336, 4096, decode_gs, True, 1e-3),      # down, decode
         (2, 32, 64, 48, np.arange(2) * 13 % 33, False, 1e-4),
@@ -388,7 +449,8 @@ def _moe_gmm_cases(seed: int, randn) -> list:
             tol = 5e-2 if dtype == torch.bfloat16 else f32_tol
             err = check_close(f"moe_gmm {E,C,D,F} {dtype}", got, want, tol, tol)
             case = {"shape": [E, C, D, F], "group_sizes": gs_np.tolist(),
-                    "dtype": str(dtype)[6:], "max_abs_err": err}
+                    "dtype": str(dtype)[6:], "path": k4.plan_call(x, w),
+                    "max_abs_err": err}
             if is_timed and dtype == torch.bfloat16:
                 es = x.element_size()
                 rows = int(gs_np.sum())
@@ -636,6 +698,8 @@ def _serve_arch(cfg, formats, seed: int, n_requests: int, prompt_len: int,
            "runs": {}}
     tokens = {}
     graph_launches = {k: 0 for k in ops.launch_counts()}
+    profiled = {k: 0 for k in ops.launch_counts()}
+    out["profile"] = {}
     ops.reset_launch_counts()
     for fmt, tree in trees.items():
         per_prefill, per_step = _launches_per_pass(cfg, tree)
@@ -691,14 +755,29 @@ def _serve_arch(cfg, formats, seed: int, n_requests: int, prompt_len: int,
         out["runs"][f"{fmt}/SI2"] = stats
         for k, n in g.launches_per_replay.items():
             graph_launches[k] += n * g.replays
-        del eng2, g
+        # one more prefill of a batch and one SI2 decode step (a replay) under
+        # torch.profiler: measured device time per kernel; their launches are
+        # left out of the counts above
+        before = ops.launch_counts()
+        with torch.no_grad():
+            batch_tokens = np.stack(prompts[:batch])
+            prof_prefill = profile_device_us(lambda: eng2.prefill_one(batch_tokens))
+            logits, cache = eng2.prefill_one(batch_tokens)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            prof_decode = profile_device_us(lambda: eng2.decode_batch(cache, tok))
+        for k, v in ops.launch_counts().items():
+            profiled[k] += v - before[k]
+        out["profile"][fmt] = {"prefill": prof_prefill, "si2_decode_step": prof_decode}
+        print(f"[profile {cfg.name} {fmt}] " + json.dumps(out["profile"][fmt]),
+              file=sys.stderr, flush=True)
+        del eng2, g, cache, logits
         torch.cuda.empty_cache()
     if "rsm_int8" in trees:
         a = np.stack([tokens[("rsm", "SI1")][r] for r in range(n_requests)])
         b = np.stack([tokens[("rsm_int8", "SI1")][r] for r in range(n_requests)])
         out["int8_token_agreement"] = float((a == b).mean())
     out["answered"] = len(tokens[(formats[-1], "SI2")])
-    out["launches"] = ops.launch_counts()
+    out["launches"] = {k: v - profiled[k] for k, v in ops.launch_counts().items()}
     out["graph_replay_launches"] = graph_launches
     del params, trees
     return out

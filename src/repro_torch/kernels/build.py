@@ -11,6 +11,7 @@ build raises with the compiler's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -130,6 +131,12 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.repro_kernel_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of a CUDA device (read once: wrappers ask on every call)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def current_stream() -> ctypes.c_void_p:

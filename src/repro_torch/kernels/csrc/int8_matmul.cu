@@ -51,14 +51,9 @@
 //          (BM = 128, or 16 for skinny M), 32-deep k-steps through shared
 //          memory, split-D with a fixed-order reduction for skinny M.
 #include "common.cuh"
-
-#include <cuda.h>  // CUtensorMap and its enums; the driver entry point is fetched at run time
+#include "hopper.cuh"
 
 namespace {
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // ---------------------------------------------------------------- fma path
 
@@ -392,70 +387,6 @@ constexpr int g_smem_bytes() {
          2 * GCfg<BPS>::STAGES * 8 + 1024;  // + alignment slack
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-// A wait that never completes (a copy that faulted) traps after 2^22 polls (seconds),
-// so the launch fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 22)) __trap();
-  }
-}
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (leading byte offset unused for this layout)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  uint64_t d = static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(1) << 16;
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator registers across the
-// asynchronous products; used only once none is in flight, since any other
-// instruction that defines an accumulator while a product group is pending
-// makes ptxas serialize the wgmmas
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // one m64n128k16 product: acc = A (64 x 16, smem) * B (16 x 128, smem)
 // + (accumulate ? acc : 0)
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t db,
@@ -597,7 +528,7 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
     if (kt > 0 && (tid & 127) == 0) mbar_arrive(smem_u32(&empty[(kt - 1) % G_STAGES]));
   }
   wgmma_wait<0>();
-  fence_acc(acc);
+  fence_acc<64>(acc);
 
   // accumulator fragment: row (warp%4)*16 + lane/4 (+8), column 8c + 2*(lane%4) (+1)
   const int lane = tid & 31;
@@ -614,29 +545,6 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
       *reinterpret_cast<__nv_bfloat162*>(out + (long long)(row0 + 8) * N + col) =
           __floats2bfloat162_rn(acc[4 * c + 2] * sc.x, acc[4 * c + 3] * sc.y);
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, fetched through the runtime so the
-// library needs no -lcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 template <int BPS>

@@ -12,27 +12,50 @@
 // weight byte serves up to 640 rows, well above the ~295 operations per byte
 // where the tensor cores become the limit: bound by operations.
 //
-// Design: one block per (c-tile, f-tile, expert), looping over D inside the
-// block.  group_sizes is read from device memory, never from the host, so a
-// CUDA graph can capture the launch.  A c-tile that lies wholly at or past
-// group_sizes[e] writes zeros and reads no weight bytes: at decode most of
-// the 8 experts get one or two of the 8 routed rows and several get none,
-// and skipping a dead expert's weight is the kernel's main saving over a
-// dense batched product.  The c-tile is the fastest grid axis, so the tiles
-// of one expert that share a weight slab run side by side and read it from
-// L2.  x and w are read by stride (unit stride on the last axis), so the
-// model's (E, C, D) view of its dispatch buffer goes in without a copy.
-//   bf16: 4 warps on a BM x 128 tile (BM = 64, or 16 when C <= 32), tensor
-//         cores through WMMA (mma.sync, 16x16x16 bf16 -> f32), a 3-stage
-//         cp.async pipeline of 32-deep k-steps; masked rows and ragged edges
-//         are zero-filled by the copy itself.
-//   f32:  true float32 (FMAs, no TF32), 256 threads on a BM x 128 tile, as
-//         the int8 GEMM (K3), so the f32 parity tests hold at 1e-4.
+// group_sizes is read from device memory, never from the host, so a CUDA
+// graph can capture every path.  x and w are read by stride (unit stride on
+// the last axis), so the model's (E, C, D) view of its dispatch buffer goes
+// in without a copy.  Three paths; kernels/moe_gmm.py:plan picks one by
+// dtype and shape:
+//   wgmma (bf16, C > 32, TMA-addressable strides): prefill.  A persistent
+//         grid (one block per SM) walks the live tiles of out, 128 x 256
+//         each: one producer warp keeps a 4-stage ring of TMA copies in
+//         flight (an x tile 128 rows x 64 deep, K-major; a w tile 64 deep x
+//         256 wide as four 64 x 64 boxes, MN-major as w lies in memory, both
+//         128-byte swizzled), and two consumer warpgroups each run
+//         wgmma.m64n256k16 on 64 of the rows, reading w through the
+//         instruction's transpose flag, so unlike K3 no conversion pass is
+//         needed.  The tile list comes from group_sizes on the device: each
+//         block sums ceil(live_e / 128) in shared memory at its start, so no
+//         tile at or past group_sizes[e] reads a byte of weights.  Tiles run
+//         expert by expert, column slab by column slab, row tile fastest, so
+//         the blocks that share a weight slab run side by side and read it
+//         from L2.  Masking moves to the epilogue: an output row depends only
+//         on its own x row, so writing zeros for rows >= group_sizes[e] (and
+//         for the rows of wholly dead tiles, which the consumers clear first)
+//         is exactly the TPU kernel's masking of x rows, and TMA loads whole
+//         tiles (rows past C, columns past F and depth past D come in as
+//         zeros).
+//   mma   (bf16 otherwise: decode's C <= 32): one block per (c-tile, f-tile,
+//         expert), BM x 128 tiles (BM = 64, or 16 when C <= 32) on 4 warps
+//         through WMMA (mma.sync, 16x16x16 bf16 -> f32), a 3-stage cp.async
+//         pipeline of 32-deep k-steps; masked rows and ragged edges are
+//         zero-filled by the copy itself.  A c-tile wholly at or past
+//         group_sizes[e] writes zeros and reads no weight bytes: at decode
+//         most of the 8 experts get one or two of the 8 routed rows and
+//         several get none, and skipping a dead expert's weight is the
+//         kernel's main saving over a dense batched product.  The c-tile is
+//         the fastest grid axis, so the tiles of one expert that share a
+//         weight slab run side by side and read it from L2.
+//   fma   (f32): true float32 (FMAs, no TF32), 256 threads on a BM x 128
+//         tile, as the int8 GEMM (K3), so the f32 parity tests hold at 1e-4.
 //
-// Left for later work: wgmma and TMA (a warp-specialised producer), split-D
-// for the decode-time down projection (256 blocks on 132 SMs), and fusing
-// gate, up and silu into one launch.
+// Left for later work: split-D for the decode-time down projection (256
+// blocks on 132 SMs), overlapping the wgmma epilogue with the next tile's
+// products (two consumer groups in turn), and fusing gate, up and silu into
+// one launch.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <mma.h>
 
@@ -62,18 +85,6 @@ __device__ void zero_tile(T* oe, int m0, int n0, int BM, const Geom& g) {
     const int r = m0 + i / BN, c = n0 + i % BN;
     if (r < g.C && c < g.F) oe[(long long)r * g.F + c] = from_f32<T>(0.f);
   }
-}
-
-// 16-byte asynchronous copy global -> shared; copies zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <int BM, int WARPS_M>
@@ -252,21 +263,261 @@ gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// -------------------------------------------------------------- wgmma path
+
+constexpr int W_BM = 128;                     // rows of out per tile (2 warpgroups x 64)
+constexpr int W_BN = 256;                     // columns of out per tile
+constexpr int W_BK = 64;                      // depth of one stage: 128 bytes of bf16
+constexpr int W_STAGES = 4;
+constexpr int W_CONSUMERS = 256;
+constexpr int W_THREADS = W_CONSUMERS + 32;   // + one producer warp
+constexpr int W_X_BYTES = W_BM * W_BK * 2;    // 16 KB
+constexpr int W_BOX_BYTES = W_BK * 64 * 2;    // one 64 deep x 64 wide w box, 8 KB
+constexpr int W_W_BYTES = W_BN / 64 * W_BOX_BYTES;  // 32 KB
+constexpr int W_MAX_E = 1024;
+constexpr int W_SMEM = W_STAGES * (W_X_BYTES + W_W_BYTES) + 2 * W_STAGES * 8 +
+                       (W_MAX_E + 1) * 4 + 1024;  // + alignment slack
+
+// one m64n256k16 product: acc = A (64 x 16, K-major smem) * B (16 x 256,
+// MN-major smem, hence the transpose flag of B) + (accumulate ? acc : 0)
+__device__ __forceinline__ void wgmma_m64n256k16_tb(float* d, uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+struct Tile {
+  int e, m0, n0;
+};
+
+// Live tile t of the expert-major, column-slab, row-tile-fastest order;
+// first[e] is the number of live row tiles of the experts before e.
+__device__ __forceinline__ Tile tile_at(const int* first, int E, int n_tiles, int t) {
+  int lo = 0, hi = E;  // the last e with first[e] * n_tiles <= t
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (first[mid] * n_tiles <= t) lo = mid;
+    else hi = mid;
+  }
+  const int mt = first[lo + 1] - first[lo];
+  const int local = t - first[lo] * n_tiles;
+  return {lo, (local % mt) * W_BM, (local / mt) * W_BN};
+}
+
+__global__ void __launch_bounds__(W_THREADS, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                 const __grid_constant__ CUtensorMap tmap_w,
+                 const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ out, int E,
+                 int C, int D, int F) {
+  extern __shared__ __align__(1024) uint8_t w_smem_raw[];
+  // the swizzled tiles need 1024-byte alignment in the shared window
+  const uint32_t raw = smem_u32(w_smem_raw);
+  uint8_t* smem = w_smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint8_t* xs = smem;                                 // [stage][128 m][64 k] bf16
+  uint8_t* ws = xs + W_STAGES * W_X_BYTES;            // [stage][4 boxes][64 k][64 n] bf16
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + W_STAGES * W_W_BYTES);
+  uint64_t* empty = full + W_STAGES;
+  int* first = reinterpret_cast<int*>(empty + W_STAGES);  // [E + 1]
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (F + W_BN - 1) / W_BN;
+  const int ktiles = (D + W_BK - 1) / W_BK;
+
+  if (tid < 32) {  // live row tiles per expert, prefix-summed by one warp
+    int carry = 0;
+    for (int e0 = 0; e0 < E; e0 += 32) {
+      const int e = e0 + tid;
+      const int mt = e < E ? (live_rows(group_sizes, e, C) + W_BM - 1) / W_BM : 0;
+      int incl = mt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (tid >= o) incl += v;
+      }
+      if (e < E) first[e] = carry + incl - mt;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (tid == 0) first[E] = carry;
+  }
+  if (tid == 32) {
+#pragma unroll
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int total = first[E] * n_tiles;
+
+  if (tid >= W_CONSUMERS) {  // producer warp: one thread issues the copies
+    if (tid == W_CONSUMERS) {
+      int it = 0;  // ring position, continued from tile to tile
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const Tile tl = tile_at(first, E, n_tiles, t);
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % W_STAGES;
+          mbar_wait(smem_u32(&empty[s]), ((it / W_STAGES) & 1) ^ 1);
+          const uint32_t fb = smem_u32(&full[s]);
+          mbar_expect_tx(fb, W_X_BYTES + W_W_BYTES);
+          tma_load_3d(smem_u32(xs + s * W_X_BYTES), &tmap_x, fb, kt * W_BK, tl.m0, tl.e);
+#pragma unroll
+          for (int i = 0; i < W_BN / 64; ++i)
+            tma_load_3d(smem_u32(ws + s * W_W_BYTES + i * W_BOX_BYTES), &tmap_w, fb,
+                        tl.n0 + i * 64, kt * W_BK, tl.e);
+        }
+      }
+    }
+    return;
+  }
+
+  // zeros for the rows of every expert's dead tiles, [128 * tiles_e, C): no
+  // tile covers them; the producer's first copies land meanwhile
+  const long long grid_threads = (long long)gridDim.x * W_CONSUMERS;
+  for (int e = 0; e < E; ++e) {
+    const int r0 = min((first[e + 1] - first[e]) * W_BM, C);
+    const long long n16 = (long long)(C - r0) * F / 8;  // 16-byte stores of 8 bf16
+    uint4* dst = reinterpret_cast<uint4*>(out + ((long long)e * C + r0) * F);
+    for (long long i = (long long)blockIdx.x * W_CONSUMERS + tid; i < n16; i += grid_threads)
+      dst[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  const int wg = tid >> 7;  // consumer warpgroup: rows wg*64 .. +64 of the tile
+  const int lane = tid & 31;
+  float acc[128];  // no initial value: a tile's first product does not accumulate
+  int it = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const Tile tl = tile_at(first, E, n_tiles, t);
+    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+      const int s = it % W_STAGES;
+      mbar_wait(smem_u32(&full[s]), (it / W_STAGES) & 1);
+      wgmma_fence();
+      const uint64_t da = gmma_desc(smem_u32(xs + s * W_X_BYTES + wg * 64 * 128));
+      const uint64_t db = gmma_desc_mn(smem_u32(ws + s * W_W_BYTES), W_BOX_BYTES);
+#pragma unroll
+      for (int j = 0; j < W_BK / 16; ++j)  // A: 16 k = 32 bytes; B: 16 k rows = 2048 bytes
+        wgmma_m64n256k16_tb(acc, da + 2 * j, db + (2048 >> 4) * j, kt > 0 || j > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the product of step it-1 is done: release its stage
+      if (kt > 0 && (tid & 127) == 0) mbar_arrive(smem_u32(&empty[(it - 1) % W_STAGES]));
+    }
+    wgmma_wait<0>();
+    if ((tid & 127) == 0) mbar_arrive(smem_u32(&empty[(it - 1) % W_STAGES]));
+    fence_acc<128>(acc);
+
+    // accumulator fragment: row (warp%4)*16 + lane/4 (+8), column 8c + 2*(lane%4) (+1);
+    // rows at or past group_sizes[e] are zeros, rows past C are not written
+    const int live = live_rows(group_sizes, tl.e, C);
+    const int row0 = tl.m0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    __nv_bfloat16* oe = out + (long long)tl.e * C * F;
+#pragma unroll
+    for (int c = 0; c < W_BN / 8; ++c) {
+      const int col = tl.n0 + c * 8 + (lane & 3) * 2;
+      if (col >= F) continue;  // F % 8 == 0: col + 1 < F as well
+      if (row0 < C)
+        *reinterpret_cast<__nv_bfloat162*>(oe + (long long)row0 * F + col) =
+            row0 < live ? __floats2bfloat162_rn(acc[4 * c], acc[4 * c + 1])
+                        : __floats2bfloat162_rn(0.f, 0.f);
+      if (row0 + 8 < C)
+        *reinterpret_cast<__nv_bfloat162*>(oe + (long long)(row0 + 8) * F + col) =
+            row0 + 8 < live ? __floats2bfloat162_rn(acc[4 * c + 2], acc[4 * c + 3])
+                            : __floats2bfloat162_rn(0.f, 0.f);
+    }
+  }
+}
+
+// x (E, C, D) and w (E, D, F) as 3-D tensor maps, innermost axis first;
+// bf16, 128-byte swizzle, zeros outside the tensor.
+int launch_wgmma(const void* x, const void* w, const int* gs, void* out, int E, const Geom& g,
+                 int grid, cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (E > W_MAX_E || grid < 1 || g.D % 8 || g.F % 8 || g.sxc % 8 || g.sxe % 8 || g.swd % 8 ||
+      g.swe % 8 || reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tx, tw;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const cuuint64_t x_dim[3] = {(cuuint64_t)g.D, (cuuint64_t)g.C, (cuuint64_t)E};
+  const cuuint64_t x_stride[2] = {(cuuint64_t)g.sxc * 2, (cuuint64_t)g.sxe * 2};
+  const cuuint32_t x_box[3] = {W_BK, W_BM, 1};
+  if (encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), x_dim, x_stride,
+             x_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t w_dim[3] = {(cuuint64_t)g.F, (cuuint64_t)g.D, (cuuint64_t)E};
+  const cuuint64_t w_stride[2] = {(cuuint64_t)g.swd * 2, (cuuint64_t)g.swe * 2};
+  const cuuint32_t w_box[3] = {64, W_BK, 1};
+  if (encode(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), w_dim, w_stride,
+             w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  gmm_wgmma_kernel<<<grid, W_THREADS, W_SMEM, stream>>>(
+      tx, tw, gs, static_cast<__nv_bfloat16*>(out), E, g.C, g.D, g.F);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// Paths, as kernels/moe_gmm.py numbers them.
+#define GMM_PATH_FMA 0
+#define GMM_PATH_MMA 1
+#define GMM_PATH_WGMMA 2
 
 // x: (E, C, D) with strides (sxe, sxc, 1); w: (E, D, F) with strides (swe,
 // swd, 1); group_sizes: (E,) int32 on the device, or null for all C rows;
 // out: (E, C, F) contiguous.  bf16 needs 16-byte aligned rows: x, w 16-byte
 // aligned and sxe, sxc, swe, swd, D, F multiples of 8 (the wrapper checks).
+// grid: the wgmma path's persistent blocks (the SM count, or fewer tiles).
 extern "C" int moe_gmm_fwd(const void* x, const void* w, const void* group_sizes, void* out,
                            int dtype, int E, int C, int D, int F, long long sxe,
-                           long long sxc, long long swe, long long swd, void* stream) {
+                           long long sxc, long long swe, long long swd, int path, int grid,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geom g{C, D, F, sxe, sxc, swe, swd};
   const int* gs = static_cast<const int*>(group_sizes);
   const unsigned f_tiles = (F + BN - 1) / BN;
   const bool tall = C > 32;
-  if (dtype == REPRO_BF16) {
+  if (path == GMM_PATH_WGMMA) {
+    if (dtype != REPRO_BF16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma(x, w, gs, out, E, g, grid, s);
+  }
+  if (path == GMM_PATH_MMA) {
+    if (dtype != REPRO_BF16) return static_cast<int>(cudaErrorInvalidValue);
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
     const auto* wb = static_cast<const __nv_bfloat16*>(w);
     auto* ob = static_cast<__nv_bfloat16*>(out);
@@ -274,14 +525,15 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, const void* group_sizes
       gmm_bf16_kernel<64, 2><<<dim3((C + 63) / 64, f_tiles, E), 128, 0, s>>>(xb, wb, gs, ob, g);
     else
       gmm_bf16_kernel<16, 1><<<dim3((C + 15) / 16, f_tiles, E), 128, 0, s>>>(xb, wb, gs, ob, g);
-  } else {
-    const auto* xf = static_cast<const float*>(x);
-    const auto* wf = static_cast<const float*>(w);
-    auto* of = static_cast<float*>(out);
-    if (tall)
-      gmm_f32_kernel<4><<<dim3((C + 63) / 64, f_tiles, E), 256, 0, s>>>(xf, wf, gs, of, g);
-    else
-      gmm_f32_kernel<1><<<dim3((C + 15) / 16, f_tiles, E), 256, 0, s>>>(xf, wf, gs, of, g);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (path != GMM_PATH_FMA || dtype != REPRO_F32) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  auto* of = static_cast<float*>(out);
+  if (tall)
+    gmm_f32_kernel<4><<<dim3((C + 63) / 64, f_tiles, E), 256, 0, s>>>(xf, wf, gs, of, g);
+  else
+    gmm_f32_kernel<1><<<dim3((C + 15) / 16, f_tiles, E), 256, 0, s>>>(xf, wf, gs, of, g);
   return static_cast<int>(cudaGetLastError());
 }

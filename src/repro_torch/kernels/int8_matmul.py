@@ -46,10 +46,6 @@ class Plan(NamedTuple):
                        # wgmma: blocks per SM (1 or 2)
 
 
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _fma_plan(M: int, N: int, D: int, sms: int) -> Plan:
     """Large M takes 128-row tiles; skinny M 16-row tiles.  When the (M, N)
     tiles cannot give every SM two blocks, D is split across blocks."""
@@ -98,7 +94,7 @@ def plan_call(x: torch.Tensor, w_q: torch.Tensor) -> Plan:
     """``plan`` for the tensors of one call on the card."""
     M, D = x.shape
     aligned = x.data_ptr() % 16 == 0 and (x.stride(0) * x.element_size()) % 16 == 0
-    return plan(M, w_q.shape[1], D, x.dtype, _sm_count(x.device), aligned)
+    return plan(M, w_q.shape[1], D, x.dtype, build.sm_count(x.device.index), aligned)
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,10 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core.engines import CompiledEngine, EagerEngine
+from repro_torch.kernels import decode_attention as k2
 from repro_torch.kernels import flash_attention as k1
 from repro_torch.kernels import int8_matmul as k3
+from repro_torch.kernels import moe_gmm as k4
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import attention
@@ -88,6 +90,54 @@ def test_decode_attention_kernel(gen, B, K, G, S, dh, window, dtype):
         got, ref.decode_attention_ref(q, kc, vc, lengths, window=window), **_tol(dtype))
 
 
+@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_split_kv(gen, G, dh, window, dtype):
+    """The split-KV kernel at every group size and head dim: lengths 1, on a
+    split boundary, one past it, and S; the window crosses split boundaries."""
+    B, K, S = 4, 2, 192
+    p = k2.plan(B, K, S, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert p.splits > 1 and p.splits * p.chunk >= S
+    q = torch.randn(B, K, G, dh, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, S, K, dh, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    vc = torch.randn(B, S, K, dh, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    lengths = torch.tensor([1, 2 * p.chunk, 2 * p.chunk + 1, S], dtype=torch.int32,
+                           device="cuda")
+    n = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, kc, vc, lengths, window=window)
+    assert ops.launch_counts()["decode_attention"] == n + 1
+    torch.testing.assert_close(
+        got, ref.decode_attention_ref(q, kc, vc, lengths, window=window), **_tol(dtype))
+
+
+def test_decode_attention_in_a_cuda_graph(gen):
+    """One captured launch serves every replay while the lengths grow, as
+    SI2's decode step does: the split plan depends on S, not on lengths."""
+    B, K, G, S, dh = 4, 8, 3, 1024, 128
+    q = torch.randn(B, K, G, dh, generator=gen, device="cuda").to(torch.bfloat16)
+    kc = torch.randn(B, S, K, dh, generator=gen, device="cuda").to(torch.bfloat16)
+    vc = torch.randn(B, S, K, dh, generator=gen, device="cuda").to(torch.bfloat16)
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    lengths = torch.tensor([513, 1, 63, 64], dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention(q, kt, vt, lengths)     # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, kt, vt, lengths)
+    for step in range(4):
+        lengths.add_(step * 31 + 1)
+        q.copy_(torch.randn(B, K, G, dh, generator=gen, device="cuda").to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref.decode_attention_ref(q, kt, vt, lengths),
+                                   **_tol(torch.bfloat16))
+
+
 @pytest.mark.parametrize("M,D,N", [(4, 256, 96), (48, 128, 64), (300, 520, 136)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_matmul_kernel(gen, M, D, N, dtype):
@@ -158,6 +208,76 @@ def test_moe_gmm_kernel(gen, E, C, D, F, dtype):
     buf = torch.randn(E * C + 1, D, generator=gen, device="cuda").to(dtype)
     xv = buf[: E * C].view(E, C, D)
     torch.testing.assert_close(ops.moe_gmm(xv, w, gs), ref.moe_gmm_ref(xv, w, gs), **tol)
+
+
+@pytest.mark.parametrize("E,C,D,F,sizes", [
+    (4, 64, 96, 128, [0, 64, 22, 5]),                       # the JAX sweep's shape
+    (3, 200, 136, 264, [0, 200, 77]),                       # C, D, F off every tile
+    (1, 640, 256, 512, [640]),                              # E = 1, all rows live
+    (1, 640, 256, 512, [130]),                              # a row tile and 2 rows
+    (8, 640, 512, 1024, [0, 640, 129, 128, 1, 639, 256, 300]),
+    (128, 40, 128, 256, None),                              # arctic's E and prefill C
+])
+def test_moe_gmm_wgmma_path(gen, E, C, D, F, sizes):
+    """The bf16 prefill path: dead rows are exact zeros, live rows match."""
+    if sizes is None:
+        sizes = torch.randint(0, C + 1, (E,), generator=gen, device="cuda").tolist()
+    x = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    assert k4.plan_call(x, w) == "wgmma"
+    n = ops.launch_counts()["moe_gmm"]
+    got = ops.moe_gmm(x, w, gs)
+    assert ops.launch_counts()["moe_gmm"] == n + 1
+    tol = dict(atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(got, ref.moe_gmm_ref(x, w, gs), **tol)
+    for e, size in enumerate(sizes):
+        assert torch.count_nonzero(got[e, size:]) == 0
+    torch.testing.assert_close(ops.moe_gmm(x, w), ref.moe_gmm_ref(x, w), **tol)
+    # the model's (E, C, D) view of its dispatch buffer, one trash row past it
+    buf = torch.randn(E * C + 1, D, generator=gen, device="cuda").to(torch.bfloat16)
+    xv = buf[: E * C].view(E, C, D)
+    assert k4.plan_call(xv, w) == "wgmma"
+    torch.testing.assert_close(ops.moe_gmm(xv, w, gs), ref.moe_gmm_ref(xv, w, gs), **tol)
+
+
+def test_moe_gmm_paths_by_shape(gen):
+    """Decode's C = 8 stays on mma, float32 on fma, a layout TMA cannot
+    address (an expert stride below C rows) on mma."""
+    w = torch.randn(2, 64, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    x8 = torch.randn(2, 8, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    assert k4.plan_call(x8, w) == "mma"
+    assert k4.plan_call(x8.float(), w.float()) == "fma"
+    buf = torch.randn(64 + 64, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    overlapping = buf.as_strided((2, 64, 64), (64 * 64 // 2, 64, 1))
+    assert k4.plan_call(overlapping, w) == "mma"
+    gs = torch.tensor([64, 17], dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(ops.moe_gmm(overlapping, w, gs),
+                               ref.moe_gmm_ref(overlapping, w, gs), atol=5e-2, rtol=5e-2)
+
+
+def test_moe_gmm_wgmma_path_in_a_cuda_graph(gen):
+    """The prefill path is captured once and replayed with new group sizes:
+    its tile list is built on the device at every launch."""
+    E, C, D, F = 8, 640, 256, 512
+    x = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(torch.bfloat16)
+    gs = torch.full((E,), C, dtype=torch.int32, device="cuda")
+    assert k4.plan_call(x, w) == "wgmma"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.moe_gmm(x, w, gs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.moe_gmm(x, w, gs)
+    for _ in range(3):
+        gs.copy_(torch.randint(0, C + 1, (E,), generator=gen, device="cuda"))
+        x.copy_(torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref.moe_gmm_ref(x, w, gs), atol=5e-2, rtol=5e-2)
 
 
 @pytest.mark.parametrize("B,H,T,dh", [(1, 2, 32, 16), (2, 3, 48, 32), (2, 4, 70, 64),

@@ -15,6 +15,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.int8_matmul import quantize_int8 as j_quantize
 from repro.models.ssm import rwkv6_wkv_step as j_wkv_step
+from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import ops, ref
 from repro_torch.models.ssm import rwkv6_wkv_step
 
@@ -90,6 +91,56 @@ def test_decode_attention_ref_window():
     o = ops.decode_attention(q, kc, vc, torch.from_numpy(lengths), window=16)
     _close(o, jref.decode_attention_ref(jq, jkc, jvc, jnp.asarray(lengths),
                                         window=16), atol=2e-4, rtol=2e-4)
+
+
+def _split_kv(q, kc, vc, lengths, window, splits, chunk):
+    """The split-KV kernel's arithmetic (csrc/decode_attention.cu) in plain
+    PyTorch: every split's (m, l, acc) over its chunk of the cache, then the
+    merge, which skips a split that attended nothing (l = 0)."""
+    B, K, G, dh = q.shape
+    S = kc.shape[2]
+    qs = q.float() * dh ** -0.5
+    pos = torch.arange(S)
+    attended = pos[None, :] < lengths[:, None]
+    if window is not None:
+        attended &= pos[None, :] >= lengths[:, None] - window
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        span = slice(s * chunk, min((s + 1) * chunk, S))
+        a = attended[:, None, None, span]
+        sc = torch.einsum("bkgd,bktd->bkgt", qs, kc[:, :, span].float())
+        m = torch.where(a, sc, -torch.inf).amax(-1)
+        p = torch.where(a, torch.exp(sc - torch.nan_to_num(m, neginf=0.0)[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgt,bktd->bkgd", p, vc[:, :, span].float()))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    live = l > 0
+    mx = torch.where(live, m, -torch.inf).amax(0)
+    f = torch.where(live, torch.exp(m - mx), 0.0)
+    return (acc * f[..., None]).sum(0) / torch.clamp((l * f).sum(0), min=1e-20)[..., None]
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("sms", [132, 2])
+def test_decode_attention_split_merge_model(window, sms):
+    """Splitting the cache and merging the partial softmax states computes
+    the same attention as the plain version and as the JAX package's kernel
+    (interpret mode), in float32: lengths 1, a multiple of the split, S, and
+    one in between; the window crosses split boundaries."""
+    B, K, G, S, dh = 4, 2, 3, 128, 32
+    p = dk.plan(B, K, S, sms)
+    assert p.splits > 1
+    jq, q = _pair(21, (B, K, G, dh), "float32")
+    jkc, kc = _pair(22, (B, K, S, dh), "float32")
+    jvc, vc = _pair(23, (B, K, S, dh), "float32")
+    lengths = np.array([1, 2 * p.chunk, S, 77], np.int32)
+    got = _split_kv(q, kc, vc, torch.from_numpy(lengths), window, p.splits, p.chunk)
+    tol = dict(atol=1e-5, rtol=1e-5)
+    _close(got, ref.decode_attention_ref(q, kc, vc, torch.from_numpy(lengths),
+                                         window=window).numpy(), **tol)
+    _close(got, jops.decode_attention(jq, jkc, jvc, jnp.asarray(lengths), window=window,
+                                      block_s=32), **tol)
 
 
 @pytest.mark.parametrize("M,D,N", [(16, 64, 32), (48, 128, 64)])

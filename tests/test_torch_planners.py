@@ -1,16 +1,24 @@
-"""The K1 and K3 wrappers' planners: which kernel path each call takes.
+"""The K1-K4 wrappers' planners: which kernel path each call takes.
 
 Pure Python, so the choice the card will make is checked here on the CPU:
 every dense() shape of every config gets a tensor-core or stream path in
-bf16, the D-splits cover D exactly, and float32 always takes the FMA path.
+bf16, the D-splits cover D exactly, and float32 always takes the FMA path;
+K2's cache splits come from the static shapes alone and cover the cache
+once; every moe config's prefill takes K4's wgmma path and its decode the
+mma path.
 """
+
+import inspect
 
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, get_arch
+from repro_torch.kernels import decode_attention as k2
 from repro_torch.kernels import flash_attention as k1
 from repro_torch.kernels import int8_matmul as k3
+from repro_torch.kernels import moe_gmm as k4
+from repro_torch.models.moe import capacity
 
 SMS = 132   # one H100 SXM
 
@@ -78,3 +86,74 @@ def test_flash_plan(dh):
     assert k1.plan_call(qf, kf, kf) == "fma"       # float32: true float32
     odd = torch.zeros(B, S, H, dh + 1, dtype=torch.bfloat16)[..., :dh].transpose(1, 2)
     assert k1.plan_call(odd, k, k) == "fma"        # rows not 16-byte aligned
+
+
+@pytest.mark.parametrize("B,K,S", [(1, 1, 1), (1, 1, 32), (2, 2, 33), (3, 4, 96),
+                                   (4, 8, 544), (4, 8, 1024), (64, 8, 4096),
+                                   (128, 8, 1024), (1, 8, 32768)])
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_decode_split_plan(B, K, S, sms):
+    # the plan sees the static shapes and the SM count, never the lengths, so
+    # one captured graph serves every replay while the lengths grow
+    assert list(inspect.signature(k2.plan).parameters) == ["B", "K", "S", "sms"]
+    p = k2.plan(B, K, S, sms)
+    assert p.splits >= 1 and p.chunk % k2.TILE == 0
+    # the splits cover [0, S) exactly once, and none of them is empty
+    spans = [range(s * p.chunk, min((s + 1) * p.chunk, S)) for s in range(p.splits)]
+    assert [i for span in spans for i in span] == list(range(S))
+    assert all(len(span) > 0 for span in spans)
+    # enough blocks to fill the card, where the cache has the tiles for them
+    tiles = -(-S // k2.TILE)
+    assert 2 * B * K * p.splits >= min(k2.BLOCKS_PER_SM * sms, B * K * tiles)
+
+
+def test_decode_split_plan_at_the_serve_shape():
+    """minitron-4b and mixtral-8x7b decode: B = 4, K = 8, max_seq 1024."""
+    assert k2.plan(4, 8, 1024, 132) == k2.Plan(32, 32)    # 1024 blocks of one tile
+
+
+MOE_ARCHS = sorted(name for name, cfg in ARCHS.items() if cfg.num_experts)
+
+
+def _moe_operands(E, C, D, F, dtype):
+    """The model's layouts, without memory: the (E, C, D) view of the
+    (E*C + 1, D) dispatch buffer, and a contiguous weight."""
+    buf = torch.empty((E * C + 1, D), dtype=dtype, device="meta")
+    return buf[: E * C].view(E, C, D), torch.empty((E, D, F), dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS + [n + "-smoke" for n in MOE_ARCHS])
+def test_moe_gmm_plan_every_config(name):
+    cfg = get_arch(name)
+    E, k, cf = cfg.num_experts, cfg.experts_per_token, cfg.capacity_factor
+    prefill_c = capacity(4 * 512, E, k, cf)      # the serve's batch of 4 x 512 tokens
+    decode_c = capacity(4, E, k, cf)             # one token of each of 4 sequences
+    assert decode_c == 8
+    for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):   # gate/up, down
+        x, w = _moe_operands(E, prefill_c, D, F, torch.bfloat16)
+        assert k4.plan_call(x, w) == "wgmma", (name, prefill_c, D, F)
+        x, w = _moe_operands(E, decode_c, D, F, torch.bfloat16)
+        assert k4.plan_call(x, w) == "mma"
+        for C in (prefill_c, decode_c):
+            assert k4.plan(E, C, D, F, torch.float32) == "fma"
+            assert k4.plan(E, C, D, F, torch.bfloat16, tma_ok=False) == "mma"
+
+
+@pytest.mark.parametrize("layout", ["row_stride", "base", "expert_stride"])
+def test_moe_gmm_plan_unaligned_is_not_wgmma(layout):
+    E, C, D, F = 2, 64, 64, 128
+    w = torch.zeros(E, D, F, dtype=torch.bfloat16)
+    if layout == "row_stride":     # rows 68 elements apart: not a multiple of 16 bytes
+        x = torch.zeros(E * C, D + 4, dtype=torch.bfloat16)[:, :D].view(E, C, D)
+    elif layout == "base":         # the first element 8 bytes into the buffer
+        x = torch.zeros(E * C * D + 4, dtype=torch.bfloat16)[4:].view(E, C, D)
+    else:                          # experts overlap: a stride below C rows
+        x = torch.zeros(E * C * D, dtype=torch.bfloat16).as_strided((E, C, D), (C * D // 2, D, 1))
+    assert not k4.tma_addressable(x, w)
+    assert k4.plan_call(x, w) == "mma"
+    assert k4.plan_call(torch.zeros(E, C, D, dtype=torch.bfloat16), w) == "wgmma"
+
+
+def test_moe_gmm_wgmma_grid():
+    assert k4.wgmma_grid(8, 640, 14336, 132) == 132     # persistent: one block per SM
+    assert k4.wgmma_grid(1, 40, 64, 132) == 1           # never more blocks than tiles
