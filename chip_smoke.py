@@ -7,11 +7,13 @@ Phases, each printed as one JSON line:
   build         nvcc builds every kernel of csrc/ for sm_90a
   kernels       each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes (minitron-4b, mixtral-8x7b,
-                rwkv6-3b) and the JAX package's sweep shapes, with its time,
-                bound and the time of one PyTorch library call computing the
-                same function where there is one; K1, K3 and K4 print the
-                path their planner took (mma / wgmma / stream / fma), K2 its
-                cache splits.  K2 is also timed at the serve's own lengths
+                arctic-480b's moe decode, rwkv6-3b) and the JAX package's
+                sweep shapes, with its time, bound and the time of one
+                PyTorch library call computing the same function where there
+                is one; K1, K3 and K4 print the path their planner took (mma
+                / wgmma / wmma / stream / fma), K2 its cache splits, K4 its D
+                splits, K5 its plan (value columns per block, key-row groups
+                per column).  K2 is also timed at the serve's own lengths
                 (513..544) and K4 at the serve's own group sizes (4096 routed
                 rows).  Each timed case is timed eagerly (ms, library_ms:
                 CUDA events around the call) and as a CUDA-graph replay
@@ -413,8 +415,11 @@ def phase_kernels(seed: int) -> dict:
 def _moe_gmm_cases(seed: int, randn) -> list:
     """K4 at mixtral-8x7b's prefill (B=4 x 512 tokens, C=640) and decode (4
     tokens, C=8) shapes with ragged group sizes, at the prefill shapes with
-    the serve's own group sizes, and at the JAX package's sweep shapes.  Bound: only the live rows of x and the weights of experts
-    with live rows are read; the whole output is written."""
+    the serve's own group sizes, at arctic-480b's decode shape (8 routed rows
+    on 8 of 128 experts; bf16 only: its float32 weight alone is 17.8 GB), and
+    at the JAX package's sweep shapes; each case prints its path and the mma
+    path's D splits.  Bound: only the live rows of x and the weights of
+    experts with live rows are read; the whole output is written."""
     import numpy as np
     import torch
 
@@ -428,28 +433,33 @@ def _moe_gmm_cases(seed: int, randn) -> list:
     # the serve's prefill: 4 x 512 tokens, top-2, so 4096 routed rows over 8
     # experts, each clamped at the capacity 640 (models/moe.py:capacity)
     serve_gs = np.minimum(rng.multinomial(4096, [1 / 8] * 8), 640)
-    shapes = [  # (E, C, D, F, group sizes, timed or not, f32 tolerance)
+    arctic_gs = np.zeros(128, dtype=np.int64)
+    arctic_gs[rng.choice(128, 8, replace=False)] = 1   # 4 tokens, top-2
+    shapes = [  # (E, C, D, F, group sizes, timed or not, f32 tolerance or None)
         (8, 640, 4096, 14336, prefill_gs, True, 1e-3),   # gate / up, prefill
         (8, 640, 14336, 4096, prefill_gs, True, 1e-3),   # down, prefill
         (8, 640, 4096, 14336, serve_gs, True, 1e-3),     # gate / up, serve-sized
         (8, 640, 14336, 4096, serve_gs, True, 1e-3),     # down, serve-sized
         (8, 8, 4096, 14336, decode_gs, True, 1e-3),      # gate / up, decode
         (8, 8, 14336, 4096, decode_gs, True, 1e-3),      # down, decode
+        (128, 8, 7168, 4864, arctic_gs, True, None),     # arctic gate / up, decode
         (2, 32, 64, 48, np.arange(2) * 13 % 33, False, 1e-4),
         (4, 64, 96, 128, np.arange(4) * 13 % 65, False, 1e-4),
     ]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = []
     for (E, C, D, F, gs_np, is_timed, f32_tol) in shapes:
         gs = torch.tensor(gs_np, dtype=torch.int32, device="cuda")
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16,) + ((torch.float32,) if f32_tol else ()):
             x = randn(E, C, D, dtype=dtype)
             w = (randn(E, D, F, dtype=torch.float32) * D ** -0.5).to(dtype)
             got = ops.moe_gmm(x, w, gs)
             want = ref.moe_gmm_ref(x, w, gs)
             tol = 5e-2 if dtype == torch.bfloat16 else f32_tol
             err = check_close(f"moe_gmm {E,C,D,F} {dtype}", got, want, tol, tol)
+            p = k4.plan_call(x, w, sms)
             case = {"shape": [E, C, D, F], "group_sizes": gs_np.tolist(),
-                    "dtype": str(dtype)[6:], "path": k4.plan_call(x, w),
+                    "dtype": str(dtype)[6:], "path": p.path, "splits": p.splits,
                     "max_abs_err": err}
             if is_timed and dtype == torch.bfloat16:
                 es = x.element_size()
@@ -470,11 +480,15 @@ def _rwkv6_scan_cases(seed: int, randn) -> list:
     """K5 at rwkv6-3b's prefill (B=4, H=40, T=512, dh=64) and decode (T=1)
     shapes, f32 as the model feeds it, and at the JAX package's sweep shapes
     in f32 and bf16.  r/k/v/w are (B, H, T, dh) views of (B, T, H, dh) memory,
-    as the model passes them.  No single PyTorch call computes the
-    recurrence, so there is no library time."""
+    as the model passes them.  Each case prints K5's plan: value columns per
+    block (jb) and key-row groups per column.  No single PyTorch call
+    computes the recurrence, so there is no library time."""
     import torch
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as k5
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     shapes = [((4, 40, 512, 64), (torch.float32,), True),
               ((4, 40, 1, 64), (torch.float32,), True),
@@ -495,7 +509,8 @@ def _rwkv6_scan_cases(seed: int, randn) -> list:
                                   tol, tol),
                       check_close(f"rwkv6_scan state {B,H,T,dh} {dtype}", sf, want_sf,
                                   2e-4, 2e-4))
-            case = {"shape": [B, H, T, dh], "dtype": str(dtype)[6:], "max_abs_err": err}
+            case = {"shape": [B, H, T, dh], "dtype": str(dtype)[6:],
+                    "plan": k5.plan(B, H, dh, sms)._asdict(), "max_abs_err": err}
             if is_timed:
                 es = r.element_size()
                 n = B * H * T * dh
@@ -512,8 +527,8 @@ def _rwkv6_scan_cases(seed: int, randn) -> list:
 
 def emit_case(kernel: str, case: dict) -> None:
     """One kernel case on stderr as it completes: path, error, times, factor."""
-    keys = ("shape", "window", "group_sizes", "dtype", "path", "splits", "max_abs_err",
-            "ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms", "factor",
+    keys = ("shape", "window", "group_sizes", "dtype", "path", "splits", "plan",
+            "max_abs_err", "ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms", "factor",
             "graph_factor", "device_us")
     print(f"[{kernel}] " + json.dumps({k: case[k] for k in keys if k in case}),
           file=sys.stderr, flush=True)

@@ -1,8 +1,9 @@
 // Building blocks shared by the kernels for Hopper (sm_90a): cp.async
-// copies (K2, K4's mma path), and for the tensor-core kernels (K3's and K4's
-// wgmma paths) shared-memory addresses, mbarriers, TMA copies, wgmma
-// descriptors and fences, and cuTensorMapEncodeTiled fetched from the driver
-// through the runtime, so a kernel library needs no -lcuda.
+// copies (K2, K4's wmma path), and for the tensor-core kernels (K3's and K4's
+// wgmma paths, K4's mma path) shared-memory addresses, mbarriers, TMA and bulk
+// copies, ldmatrix and mma.sync, wgmma descriptors and fences, and
+// cuTensorMapEncodeTiled fetched from the driver through the runtime, so a
+// kernel library needs no -lcuda.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry point is fetched at run time
@@ -68,6 +69,36 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// global -> shared, completing on the mbarrier's transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ldmatrix of four 8x8 b16 matrices (lanes 8q..8q+7 address matrix q's rows), plain
+// and transposed, and mma.sync m16n8k16: d (16x8 f32) += a (16x16 bf16, row) * b (16x8, col)
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // wgmma shared-memory descriptor of a K-major operand, 128-byte swizzle, 8-row groups

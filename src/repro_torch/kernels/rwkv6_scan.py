@@ -7,19 +7,45 @@ r/k/v/w by stride, so (B, H, T, dh) views of the model's (B, T, H, dh)
 projections cost no copy; out is allocated in (B, T, H, dh) memory and
 returned as a (B, H, T, dh) view.  The final state goes to ``s_out`` when it
 is given (it may be ``s0`` itself: the decode cache, updated in place).
+
+``plan`` splits each head's value columns across blocks from the static
+shapes and the SM count alone, never from T or the state.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"rwkv6_scan_fwd": ([_P] * 8 + [_I] * 5 + [_L] * 19 + [_P], ctypes.c_int)}
+_SIGNATURES = {"rwkv6_scan_fwd": ([_P] * 8 + [_I] * 6 + [_L] * 19 + [_P], ctypes.c_int)}
 HEAD_DIMS = (16, 32, 64)
+COLUMN_SLICES = (8, 16, 32)   # value columns of one block: at most a warp's lanes, so
+                               # a warp's r/k/w reads share one row group's address
+BLOCKS_PER_SM = 2              # the plan aims at this many blocks per SM
+ROWS_PER_GROUP = 16            # key rows of the state one thread holds per column (csrc R)
+
+
+class Plan(NamedTuple):
+    jb: int          # value columns of one block: B * H * (dh / jb) blocks
+    row_groups: int  # threads that share one column, ROWS_PER_GROUP key rows each
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, H: int, dh: int, sms: int = 132) -> Plan:
+    """The widest column slice that still gives every SM BLOCKS_PER_SM
+    blocks, else the narrowest (8 columns).  A wider slice stages r/k/w once
+    for more columns and keeps a warp's reads on one row group, which
+    outweighs the fuller waves of narrower slices at rwkv6-3b's prefill."""
+    fits = [jb for jb in COLUMN_SLICES if jb <= dh]
+    jb = next((jb for jb in reversed(fits) if B * H * (dh // jb) >= BLOCKS_PER_SM * sms),
+              fits[0])
+    return Plan(jb, dh // ROWS_PER_GROUP)
 
 
 def _bht(t: torch.Tensor):
@@ -67,12 +93,16 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
         raise ValueError("rwkv6_scan: all operands must be on one device")
     if any(t.stride(3) != 1 for t in (r, k, v, w)):
         raise ValueError("rwkv6_scan: the head dim of r, k, v, w must be contiguous")
+    per16 = 16 // r.element_size()   # the kernel stages rows with 16-byte copies
+    if any(t.data_ptr() % 16 or any(st % per16 for st in _bht(t)) for t in (r, k, v, w)):
+        raise ValueError("rwkv6_scan: r, k, v, w rows must be 16-byte aligned")
     out = torch.empty((B, T, H, dh), dtype=r.dtype, device=r.device).transpose(1, 2)
+    p = plan(B, H, dh, build.sm_count(r.device.index))
     lib = build.library("rwkv6_scan", _SIGNATURES)
     code = lib.rwkv6_scan_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         s0.data_ptr(), out.data_ptr(), s_out.data_ptr(), build.DTYPE_CODES[r.dtype],
-        B, H, T, dh, *_bht(r), *_bht(k), *_bht(v), *_bht(w), *_bht(out),
+        B, H, T, dh, p.jb, *_bht(r), *_bht(k), *_bht(v), *_bht(w), *_bht(out),
         s0.stride(0), s0.stride(1), s_out.stride(0), s_out.stride(1),
         build.current_stream())
     build.check(lib, code, "rwkv6_scan")

@@ -15,6 +15,7 @@ from repro_torch.kernels import decode_attention as k2
 from repro_torch.kernels import flash_attention as k1
 from repro_torch.kernels import int8_matmul as k3
 from repro_torch.kernels import moe_gmm as k4
+from repro_torch.kernels import rwkv6_scan as k5
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import attention
@@ -225,7 +226,7 @@ def test_moe_gmm_wgmma_path(gen, E, C, D, F, sizes):
     x = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(torch.bfloat16)
     gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-    assert k4.plan_call(x, w) == "wgmma"
+    assert k4.plan_call(x, w).path == "wgmma"
     n = ops.launch_counts()["moe_gmm"]
     got = ops.moe_gmm(x, w, gs)
     assert ops.launch_counts()["moe_gmm"] == n + 1
@@ -237,20 +238,27 @@ def test_moe_gmm_wgmma_path(gen, E, C, D, F, sizes):
     # the model's (E, C, D) view of its dispatch buffer, one trash row past it
     buf = torch.randn(E * C + 1, D, generator=gen, device="cuda").to(torch.bfloat16)
     xv = buf[: E * C].view(E, C, D)
-    assert k4.plan_call(xv, w) == "wgmma"
+    assert k4.plan_call(xv, w).path == "wgmma"
     torch.testing.assert_close(ops.moe_gmm(xv, w, gs), ref.moe_gmm_ref(xv, w, gs), **tol)
 
 
 def test_moe_gmm_paths_by_shape(gen):
-    """Decode's C = 8 stays on mma, float32 on fma, a layout TMA cannot
-    address (an expert stride below C rows) on mma."""
+    """Decode's C = 8 takes mma, float32 fma, a layout TMA cannot address
+    (an expert stride below C rows) at C = 64 wmma."""
     w = torch.randn(2, 64, 128, generator=gen, device="cuda").to(torch.bfloat16)
     x8 = torch.randn(2, 8, 64, generator=gen, device="cuda").to(torch.bfloat16)
-    assert k4.plan_call(x8, w) == "mma"
-    assert k4.plan_call(x8.float(), w.float()) == "fma"
+    assert k4.plan_call(x8, w).path == "mma"
+    assert k4.plan_call(x8.float(), w.float()).path == "fma"
     buf = torch.randn(64 + 64, 64, generator=gen, device="cuda").to(torch.bfloat16)
     overlapping = buf.as_strided((2, 64, 64), (64 * 64 // 2, 64, 1))
-    assert k4.plan_call(overlapping, w) == "mma"
+    assert k4.plan_call(overlapping, w).path == "wmma"
+    # decode's C with a w TMA cannot address (experts overlap): wmma as well
+    wbuf = torch.randn(64 * 128 * 3 // 2, generator=gen, device="cuda").to(torch.bfloat16)
+    w_overlapping = wbuf.as_strided((2, 64, 128), (64 * 128 // 2, 128, 1))
+    assert k4.plan_call(x8, w_overlapping).path == "wmma"
+    gs8 = torch.tensor([8, 3], dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(ops.moe_gmm(x8, w_overlapping, gs8),
+                               ref.moe_gmm_ref(x8, w_overlapping, gs8), atol=5e-2, rtol=5e-2)
     gs = torch.tensor([64, 17], dtype=torch.int32, device="cuda")
     torch.testing.assert_close(ops.moe_gmm(overlapping, w, gs),
                                ref.moe_gmm_ref(overlapping, w, gs), atol=5e-2, rtol=5e-2)
@@ -263,7 +271,7 @@ def test_moe_gmm_wgmma_path_in_a_cuda_graph(gen):
     x = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(torch.bfloat16)
     gs = torch.full((E,), C, dtype=torch.int32, device="cuda")
-    assert k4.plan_call(x, w) == "wgmma"
+    assert k4.plan_call(x, w).path == "wgmma"
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -278,6 +286,87 @@ def test_moe_gmm_wgmma_path_in_a_cuda_graph(gen):
         graph.replay()
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ref.moe_gmm_ref(x, w, gs), atol=5e-2, rtol=5e-2)
+
+
+def _bf16_operands(gen, E, C, D, F):
+    x = torch.randn(E, C, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(E, D, F, generator=gen, device="cuda", dtype=torch.bfloat16) * D ** -0.5
+    return x, w
+
+
+def _check_decode(got, x, w, sizes):
+    """Live experts against the plain version on their own slices (arctic's
+    full float32 copy of w would take 18 GB); dead rows are exact zeros."""
+    live = [e for e, n in enumerate(sizes) if n > 0]
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    want = ref.moe_gmm_ref(x[live], w[live], gs[live])
+    torch.testing.assert_close(got[live], want, atol=5e-2, rtol=5e-2)
+    for e, n in enumerate(sizes):
+        assert torch.count_nonzero(got[e, n:]) == 0
+
+
+@pytest.mark.parametrize("E,C,D,F,sizes", [
+    (8, 8, 4096, 14336, [2, 0, 3, 1, 0, 0, 2, 0]),      # mixtral gate/up at decode
+    (8, 8, 14336, 4096, [2, 0, 3, 1, 0, 0, 2, 0]),      # mixtral down
+    (128, 8, 7168, 4864, [0] * 120 + [1] * 8),          # arctic: 8 of 128 experts live
+    (128, 8, 4864, 7168, [1, 0, 2, 0] * 32),            # arctic down, 64 live: items loop
+    (8, 8, 2056, 264, [8, 1, 0, 7, 0, 3, 0, 5]),        # D % 16 == 8, a ragged column tile
+    (3, 12, 1032, 136, [12, 9, 0]),                     # two n8 tiles
+    (2, 32, 2048, 128, [32, 17]),                       # four n8 tiles
+    (2, 8, 64, 48, [3, 8]),                             # one stage, one split
+])
+def test_moe_gmm_decode_split_d(gen, E, C, D, F, sizes):
+    """The bf16 decode path (split-D, mma.sync with x rows as n8 tiles)."""
+    x, w = _bf16_operands(gen, E, C, D, F)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    p = k4.plan_call(x, w, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert p.path == "mma"
+    n = ops.launch_counts()["moe_gmm"]
+    got = ops.moe_gmm(x, w, gs)
+    assert ops.launch_counts()["moe_gmm"] == n + 1
+    _check_decode(got, x, w, sizes)
+
+
+def test_moe_gmm_decode_deterministic(gen):
+    """Several D splits summed in a fixed order: two calls, the same bits."""
+    E, C, D, F = 8, 8, 14336, 4096
+    x, w = _bf16_operands(gen, E, C, D, F)
+    assert k4.plan_call(x, w).splits > 1
+    gs = torch.tensor([2, 0, 3, 1, 0, 0, 2, 0], dtype=torch.int32, device="cuda")
+    a = ops.moe_gmm(x, w, gs)
+    b = ops.moe_gmm(x, w, gs)
+    assert torch.equal(a, b)
+    # without group sizes every expert is live: more items than blocks
+    torch.testing.assert_close(ops.moe_gmm(x[:, :, :2056], w[:, :2056]),
+                               ref.moe_gmm_ref(x[:, :, :2056], w[:, :2056]),
+                               atol=5e-2, rtol=5e-2)
+
+
+def test_moe_gmm_decode_in_a_cuda_graph(gen):
+    """Captured once, replayed with new group sizes (dead experts, full
+    experts, all dead): the live list is built on the device and the split
+    counters reset themselves between replays."""
+    E, C, D, F = 8, 8, 4096, 1024
+    x, w = _bf16_operands(gen, E, C, D, F)
+    assert k4.plan_call(x, w).splits > 1
+    gs = torch.full((E,), C, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.moe_gmm(x, w, gs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.moe_gmm(x, w, gs)
+    for sizes in ([2, 0, 3, 1, 0, 0, 2, 0], [8] * 8, [0] * 8, [0, 0, 0, 0, 0, 0, 0, 8]):
+        gs.copy_(torch.tensor(sizes, dtype=torch.int32))
+        x.copy_(torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        _check_decode(out, x, w, sizes)
+        first = out.clone()
+        graph.replay()
+        assert torch.equal(out, first)
 
 
 @pytest.mark.parametrize("B,H,T,dh", [(1, 2, 32, 16), (2, 3, 48, 32), (2, 4, 70, 64),
@@ -301,6 +390,29 @@ def test_rwkv6_scan_kernel(gen, B, H, T, dh, dtype):
     # the final state written over the initial one, in place
     state = s0.clone()
     ops.rwkv6_scan(r, k, v, w, u, state, s_out=state)
+    torch.testing.assert_close(state, want_sf, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("T", [512, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_at_the_serve_shapes(gen, T, dtype):
+    """rwkv6-3b's prefill (T = 512) and decode (T = 1) at B = 4: 40 heads of
+    64 in 32-column slices; the state updated in place, as the decode cache is."""
+    B, H, dh = 4, 40, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert k5.plan(B, H, dh, sms).jb < dh
+    def rnd(*shape, scale=0.5):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    r, k, v = (rnd(B, T, H, dh).to(dtype).transpose(1, 2) for _ in range(3))
+    w = torch.sigmoid(rnd(B, T, H, dh, scale=1.0)).to(dtype).transpose(1, 2)
+    u, s0 = rnd(H, dh, scale=0.3), rnd(B, H, dh, dh, scale=0.1)
+    want_out, want_sf = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    state = s0.clone()
+    out, sf = ops.rwkv6_scan(r, k, v, w, u, state, s_out=state)
+    assert sf.data_ptr() == state.data_ptr()
+    tol = dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(out, want_out, **tol)
     torch.testing.assert_close(state, want_sf, atol=2e-4, rtol=2e-4)
 
 

@@ -16,6 +16,8 @@ from repro.kernels import ref as jref
 from repro.kernels.int8_matmul import quantize_int8 as j_quantize
 from repro.models.ssm import rwkv6_wkv_step as j_wkv_step
 from repro_torch.kernels import decode_attention as dk
+from repro_torch.kernels import moe_gmm as k4
+from repro_torch.kernels import rwkv6_scan as k5
 from repro_torch.kernels import ops, ref
 from repro_torch.models.ssm import rwkv6_wkv_step
 
@@ -198,6 +200,54 @@ def test_moe_gmm_ref_without_group_sizes():
     _close(ops.moe_gmm(x, w), jref.moe_gmm_ref(jx, jw), atol=1e-4, rtol=1e-4)
 
 
+def _split_d(x, w, gs, p):
+    """The mma path's arithmetic (csrc/moe_gmm.cu, gmm_decode_kernel) in plain
+    PyTorch: every live expert's (D split, 128-column tile) partial in
+    float32, 16-deep mma steps with the half step past a ragged D masked, the
+    partials summed in split order; rows at or past group_sizes[e] and dead
+    experts zeros."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    out = torch.zeros((E, C, F))
+    for e in range(E):
+        live = int(gs[e])
+        if live <= 0:
+            continue
+        for n0 in range(0, F, k4.MMA_BN):
+            cols = slice(n0, min(n0 + k4.MMA_BN, F))
+            parts = []
+            for s in range(p.splits):
+                d0, d1 = s * p.k_per_split, min(D, (s + 1) * p.k_per_split)
+                acc = torch.zeros((live, cols.stop - n0))
+                for k16 in range(d0, d1, 16):
+                    ks = slice(k16, min(k16 + 16, d1))
+                    acc += x[e, :live, ks].float() @ w[e, ks, cols].float()
+                parts.append(acc)
+            total = torch.zeros_like(parts[0])
+            for part in parts:
+                total = total + part
+            out[e, :live, cols] = total
+    return out
+
+
+def test_moe_gmm_split_d_model():
+    """Splitting D across blocks and summing the partials in the kernel's
+    fixed order computes what the JAX package's kernel (interpret mode) does,
+    in float32: a dead expert, a full one, a ragged D (D % 16 == 8, so the
+    last split ends on a half mma step) and a ragged column tile."""
+    E, C, D, F = 4, 8, 1032, 264
+    p = k4.plan(E, C, D, F, torch.bfloat16)
+    assert p.path == "mma" and p.splits > 1 and D % p.k_per_split and D % 16 == 8
+    jx, x = _pair(31, (E, C, D), "float32")
+    jw, w = _pair(32, (E, D, F), "float32")
+    gs = np.array([3, 0, 8, 1], np.int32)
+    got = _split_d(x, w, torch.from_numpy(gs), p)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    _close(got, ref.moe_gmm_ref(x, w, torch.from_numpy(gs)).numpy(), **tol)
+    # whole blocks for the TPU kernel: its interpret mode reads past a ragged edge
+    _close(got, jops.moe_gmm(jx, jw, jnp.asarray(gs), block_c=C, block_f=F, block_d=D), **tol)
+
+
 def _wkv_inputs(B, H, T, dh, dtype, seed=13):
     """The sweep's inputs: r/k/v scaled 0.5, w in (0, 1), u 0.3, s0 0.1."""
     rng = np.random.default_rng(seed)
@@ -226,6 +276,59 @@ def test_rwkv6_scan_ref_sweep(B, H, T, dh, chunk):
     ko, ksf = jops.rwkv6_scan(*jin, chunk=chunk)
     _close(o, ko, atol=2e-4, rtol=2e-4)
     _close(sf, ksf, atol=2e-4, rtol=2e-4)
+
+
+def _wkv_sliced(r, k, v, w, u, s, p):
+    """The K5 kernel's decomposition (csrc/rwkv6_scan.cu) in plain PyTorch:
+    blocks of p.jb value columns, p.row_groups groups of key rows per
+    column, four partial sums per group, the groups' shares summed in group
+    order, time in chunks of 16; each block writes its columns of the state
+    back into ``s`` (in place) when it is done."""
+    B, H, T, dh = r.shape
+    out = torch.empty((B, H, T, dh))
+    for j0 in range(0, dh, p.jb):
+        cols = slice(j0, j0 + p.jb)
+        S = s[:, :, :, cols].clone()   # read before the block writes
+        for t0 in range(0, T, 16):
+            for t in range(t0, min(t0 + 16, T)):
+                rt, kt, wt = r[:, :, t], k[:, :, t], w[:, :, t]
+                vt = v[:, :, t, cols]
+                shares = []
+                rows = dh // p.row_groups
+                for g in range(p.row_groups):
+                    i = torch.arange(rows * g, rows * g + rows).view(rows // 4, 4)   # [m][c]
+                    kv = kt[..., i, None] * vt[:, :, None, None, :]
+                    term = rt[..., i, None] * (u[None, :, i, None] * kv + S[:, :, i])
+                    a = term.sum(dim=2)                        # the four partials, by c
+                    shares.append((a[:, :, 0] + a[:, :, 1]) + (a[:, :, 2] + a[:, :, 3]))
+                    S[:, :, i] = wt[..., i, None] * S[:, :, i] + kv
+                acc = shares[0]
+                for share in shares[1:]:
+                    acc = acc + share
+                out[:, :, t, cols] = acc
+        s[:, :, :, cols] = S
+    return out
+
+
+@pytest.mark.parametrize("B,H,T,dh", [(1, 2, 48, 16), (2, 3, 32, 32), (1, 2, 16, 64),
+                                     (1, 2, 17, 64)])
+def test_rwkv6_scan_column_slice_model(B, H, T, dh):
+    """Value-column slices x key-row groups x 16-step chunks compute what the
+    JAX package's oracle and kernel (interpret mode, where T is whole chunks:
+    it reads past a ragged one) do, in float32, with the final state written
+    over the initial one."""
+    p = k5.plan(B, H, dh, 132)
+    assert p.jb < dh and p.row_groups == dh // 16
+    jin, tin = _wkv_inputs(B, H, T, dh, "float32", seed=29)
+    state = tin[5].clone()
+    got = _wkv_sliced(*tin[:5], state, p)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    wants = [jref.rwkv6_scan_ref(*jin)]
+    if T % 16 == 0:
+        wants.append(jops.rwkv6_scan(*jin, chunk=16))
+    for jo, jsf in wants:
+        _close(got, jo, **tol)
+        _close(state, jsf, **tol)
 
 
 def test_rwkv6_scan_ref_bf16_and_state_in_place():

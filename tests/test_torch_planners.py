@@ -5,7 +5,8 @@ every dense() shape of every config gets a tensor-core or stream path in
 bf16, the D-splits cover D exactly, and float32 always takes the FMA path;
 K2's cache splits come from the static shapes alone and cover the cache
 once; every moe config's prefill takes K4's wgmma path and its decode the
-mma path.
+mma path, whose D splits come from the static shapes alone and cover D
+once; K5's column slices come from (B, H, dh, SMs) alone.
 """
 
 import inspect
@@ -18,6 +19,7 @@ from repro_torch.kernels import decode_attention as k2
 from repro_torch.kernels import flash_attention as k1
 from repro_torch.kernels import int8_matmul as k3
 from repro_torch.kernels import moe_gmm as k4
+from repro_torch.kernels import rwkv6_scan as k5
 from repro_torch.models.moe import capacity
 
 SMS = 132   # one H100 SXM
@@ -131,12 +133,12 @@ def test_moe_gmm_plan_every_config(name):
     assert decode_c == 8
     for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):   # gate/up, down
         x, w = _moe_operands(E, prefill_c, D, F, torch.bfloat16)
-        assert k4.plan_call(x, w) == "wgmma", (name, prefill_c, D, F)
+        assert k4.plan_call(x, w).path == "wgmma", (name, prefill_c, D, F)
         x, w = _moe_operands(E, decode_c, D, F, torch.bfloat16)
-        assert k4.plan_call(x, w) == "mma"
+        assert k4.plan_call(x, w).path == "mma"
         for C in (prefill_c, decode_c):
-            assert k4.plan(E, C, D, F, torch.float32) == "fma"
-            assert k4.plan(E, C, D, F, torch.bfloat16, tma_ok=False) == "mma"
+            assert k4.plan(E, C, D, F, torch.float32).path == "fma"
+            assert k4.plan(E, C, D, F, torch.bfloat16, tma_ok=False).path == "wmma"
 
 
 @pytest.mark.parametrize("layout", ["row_stride", "base", "expert_stride"])
@@ -150,10 +152,89 @@ def test_moe_gmm_plan_unaligned_is_not_wgmma(layout):
     else:                          # experts overlap: a stride below C rows
         x = torch.zeros(E * C * D, dtype=torch.bfloat16).as_strided((E, C, D), (C * D // 2, D, 1))
     assert not k4.tma_addressable(x, w)
-    assert k4.plan_call(x, w) == "mma"
-    assert k4.plan_call(torch.zeros(E, C, D, dtype=torch.bfloat16), w) == "wgmma"
+    assert k4.plan_call(x, w).path == "wmma"
+    assert k4.plan_call(torch.zeros(E, C, D, dtype=torch.bfloat16), w).path == "wgmma"
 
 
 def test_moe_gmm_wgmma_grid():
     assert k4.wgmma_grid(8, 640, 14336, 132) == 132     # persistent: one block per SM
     assert k4.wgmma_grid(1, 40, 64, 132) == 1           # never more blocks than tiles
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS + [n + "-smoke" for n in MOE_ARCHS])
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_moe_gmm_decode_split_plan_every_config(name, sms):
+    """K4's D splits, for every moe config's decode and prefill C, from the
+    static shapes and the SM count: never from group_sizes, so one captured
+    graph serves every step whoever the experts are."""
+    assert list(inspect.signature(k4.plan).parameters) == ["E", "C", "D", "F", "dtype",
+                                                           "tma_ok", "sms"]
+    cfg = get_arch(name)
+    E, k, cf = cfg.num_experts, cfg.experts_per_token, cfg.capacity_factor
+    for C in (capacity(4, E, k, cf), capacity(4 * 512, E, k, cf)):
+        for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+            x, w = _moe_operands(E, C, D, F, torch.bfloat16)
+            p = k4.plan_call(x, w, sms)
+            if C > k4.MMA_MAX_C:            # prefill: wgmma, no split
+                assert p == k4.Plan("wgmma", 1, D)
+                continue
+            assert p.path == "mma" and p.k_per_split % k4.MMA_BK == 0
+            _covers(p, D)
+            steps = -(-D // k4.MMA_BK)
+            assert p.splits == 1 or p.k_per_split >= k4.MMA_MIN_STAGES * k4.MMA_BK
+            # the items of min(E, C) live experts fill the card, where D has
+            # the stages for them
+            items = k4.mma_grid(E, C, F, p)
+            n_tiles = -(-F // k4.MMA_BN)
+            assert items == min(E, C) * n_tiles * p.splits
+            assert items >= min(k4.MMA_ITEMS_PER_SM * sms,
+                                min(E, C) * n_tiles * (steps // k4.MMA_MIN_STAGES))
+
+
+@pytest.mark.parametrize("E,C,D,F", [(8, 8, 14336, 4096), (8, 8, 4096, 14336),
+                                     (128, 8, 7168, 4864), (2, 32, 64, 48), (8, 8, 2056, 264),
+                                     (3, 12, 1032, 136)])
+def test_moe_gmm_decode_split_plan_shapes(E, C, D, F):
+    p = k4.plan(E, C, D, F, torch.bfloat16)
+    assert p.path == "mma"
+    _covers(p, D)
+    assert p.splits * p.k_per_split - D < p.k_per_split   # no empty split
+
+
+def test_moe_gmm_decode_split_plan_at_the_serve_shapes():
+    """mixtral-8x7b's decode: down 5 splits of 2880 (1280 blocks), gate/up 2
+    of 2048; arctic-480b's gate/up 4 of 1792."""
+    assert k4.plan(8, 8, 14336, 4096, torch.bfloat16) == k4.Plan("mma", 5, 2880)
+    assert k4.plan(8, 8, 4096, 14336, torch.bfloat16) == k4.Plan("mma", 2, 2048)
+    assert k4.plan(128, 8, 7168, 4864, torch.bfloat16) == k4.Plan("mma", 4, 1792)
+    assert k4.mma_grid(8, 8, 4096, k4.plan(8, 8, 14336, 4096, torch.bfloat16)) == 1280
+
+
+SSM_HEADS = sorted({(cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim)
+                    for name in ARCHS for cfg in (get_arch(name), get_arch(name + "-smoke"))
+                    if cfg.family == "ssm"})
+
+
+@pytest.mark.parametrize("H,dh", SSM_HEADS + [(40, 16), (40, 32), (2, 16), (3, 32)])
+@pytest.mark.parametrize("B", [1, 4, 64])
+@pytest.mark.parametrize("sms", [132, 8])
+def test_rwkv6_scan_plan(H, dh, B, sms):
+    """K5's column slices from (B, H, dh, SMs) alone: never from T or the
+    state, so prefill and every decode step of a batch share one plan."""
+    assert list(inspect.signature(k5.plan).parameters) == ["B", "H", "dh", "sms"]
+    p = k5.plan(B, H, dh, sms)
+    assert p.jb in k5.COLUMN_SLICES and p.jb <= min(dh, 32) and dh % p.jb == 0
+    assert p.row_groups * k5.ROWS_PER_GROUP == dh and p.row_groups in (1, 2, 4)
+    assert p.jb * p.row_groups <= 256       # threads of one block
+    blocks = B * H * (dh // p.jb)
+    # the widest slice that gives every SM BLOCKS_PER_SM blocks, else 8 columns
+    if blocks >= k5.BLOCKS_PER_SM * sms:
+        assert p.jb == min(dh, 32) or B * H * (dh // (2 * p.jb)) < k5.BLOCKS_PER_SM * sms
+    else:
+        assert p.jb == 8
+
+
+def test_rwkv6_scan_plan_at_the_serve_shape():
+    """rwkv6-3b at B = 4: 40 heads of 64 in 32-column slices, 320 blocks of
+    4 row groups."""
+    assert k5.plan(4, 40, 64, 132) == k5.Plan(32, 4)
