@@ -33,6 +33,21 @@ Phases, each printed as one JSON line:
                 before each arch, show the kernels on each path; then one
                 more prefill of a batch and one SI2 decode step under
                 torch.profiler give the device time per kernel (profile)
+  schedule      the TD3 schedulers on the virtual-clock core: first
+                minitron-4b-smoke in f32 (the four policies give one token
+                stream under SI2; a free continuous-batch slot steps past
+                max_seq inside the captured graph), then full-width
+                minitron-4b (32 layers, bf16, max_seq 1024, random weights
+                from --seed): a burst of 16 requests through dynamic and
+                continuous batching on SI1 and SI2 (SI2's tokens must equal
+                SI1's), and 48 Poisson requests at 10 req/s (512 prompt, 32
+                new tokens) through the four policies on SI2 rsm,
+                continuous batching on SI1 rsm and on SI2 rsm_int8.  Every
+                dispatch executes on the card; the card's own energy
+                (NVML) is read around each run and over 2 s of idle, and
+                the run's timeline is billed again by a second core under
+                those measured powers (schedule_run lines, then one
+                schedule line)
   formats       rsm_int8 on disk -> load -> the same tokens as in memory;
                 an 8-layer model serves rsm_int8 behind the norm-gain fence
 Then the kernel summary line, the card's name and power limit, and last
@@ -43,12 +58,14 @@ device it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -881,9 +898,364 @@ def phase_formats(seed: int) -> dict:
     return out
 
 
-def kernel_line(kernel_cases: dict, serve: dict) -> dict:
+# -- the card's energy and the schedule phase ---------------------------------------
+
+NVML_SUCCESS, NVML_ERROR_NOT_SUPPORTED = 0, 3
+
+
+class CardEnergy:
+    """The board's energy through NVML (ctypes on NVIDIA's
+    libnvidia-ml.so.1): its cumulative energy counter
+    (nvmlDeviceGetTotalEnergyConsumption, mJ) or, where the board reports
+    that as not supported, its power (nvmlDeviceGetPowerUsage, mW) sampled
+    by a thread at 50 Hz and integrated.  The power is sampled either way,
+    as a cross-check of the counter.  The card's energy, not the host's."""
+
+    SAMPLE_S = 0.02
+
+    def __init__(self, index: int = 0):
+        lib = ctypes.CDLL("libnvidia-ml.so.1")
+        handle_p = ctypes.POINTER(ctypes.c_void_p)
+        for name, args in (
+                ("nvmlInit_v2", []), ("nvmlShutdown", []),
+                ("nvmlDeviceGetHandleByIndex_v2", [ctypes.c_uint, handle_p]),
+                ("nvmlDeviceGetName", [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint]),
+                ("nvmlDeviceGetTotalEnergyConsumption",
+                 [ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]),
+                ("nvmlDeviceGetPowerUsage", [ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint)])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int
+        lib.nvmlErrorString.argtypes = [ctypes.c_int]
+        lib.nvmlErrorString.restype = ctypes.c_char_p
+        self._lib = lib
+        self._check(lib.nvmlInit_v2(), "nvmlInit_v2")
+        self._handle = ctypes.c_void_p()
+        self._check(lib.nvmlDeviceGetHandleByIndex_v2(index, ctypes.byref(self._handle)),
+                    "nvmlDeviceGetHandleByIndex_v2")
+        name = ctypes.create_string_buffer(96)
+        self._check(lib.nvmlDeviceGetName(self._handle, name, 96), "nvmlDeviceGetName")
+        self.name = name.value.decode()
+        mj = ctypes.c_ulonglong()
+        rc = lib.nvmlDeviceGetTotalEnergyConsumption(self._handle, ctypes.byref(mj))
+        if rc == NVML_SUCCESS:
+            self.method = "nvml_total_energy_counter"
+        elif rc == NVML_ERROR_NOT_SUPPORTED:
+            self.method = "nvml_power_sampled_50hz"
+        else:
+            self._check(rc, "nvmlDeviceGetTotalEnergyConsumption")
+
+    def _check(self, rc: int, what: str) -> None:
+        if rc != NVML_SUCCESS:
+            raise RuntimeError(f"{what}: NVML error {rc} "
+                               f"({self._lib.nvmlErrorString(rc).decode()})")
+
+    def _energy_mj(self) -> int:
+        mj = ctypes.c_ulonglong()
+        self._check(self._lib.nvmlDeviceGetTotalEnergyConsumption(self._handle,
+                                                                  ctypes.byref(mj)),
+                    "nvmlDeviceGetTotalEnergyConsumption")
+        return mj.value
+
+    def _power_w(self) -> float:
+        mw = ctypes.c_uint()
+        self._check(self._lib.nvmlDeviceGetPowerUsage(self._handle, ctypes.byref(mw)),
+                    "nvmlDeviceGetPowerUsage")
+        return mw.value / 1e3
+
+    def measure(self, fn):
+        """``fn()`` with the card synchronised before and after; returns (its
+        result, {"j", "s", "w": the card's joules, seconds and mean draw over
+        the call, "sampled_j", "samples": the sampled power's integral})."""
+        import torch
+
+        samples, errors = [], []
+        stop = threading.Event()
+
+        def sample():
+            try:
+                while True:
+                    samples.append(self._power_w())
+                    if stop.wait(self.SAMPLE_S):
+                        return
+            except RuntimeError as e:
+                errors.append(e)
+
+        counter = self.method == "nvml_total_energy_counter"
+        torch.cuda.synchronize()
+        sampler = threading.Thread(target=sample, daemon=True)
+        e0 = self._energy_mj() if counter else 0
+        t0 = time.perf_counter()
+        sampler.start()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            t1 = time.perf_counter()
+            stop.set()
+            sampler.join()
+        e1 = self._energy_mj() if counter else 0
+        if errors:
+            raise errors[0]
+        seconds = t1 - t0
+        sampled_j = sum(samples) / len(samples) * seconds
+        joules = (e1 - e0) / 1e3 if counter else sampled_j
+        return out, {"j": joules, "s": seconds, "w": joules / seconds,
+                     "sampled_j": sampled_j, "samples": len(samples)}
+
+    def close(self) -> None:
+        self._check(self._lib.nvmlShutdown(), "nvmlShutdown")
+
+
+def _recorded_steps():
+    """A StepTimeCache that never hits while it records, so every dispatch
+    of a live run executes on the card, and keeps each measured duration in
+    call order; its ``replaying()`` copy hands them back in that order, so a
+    second SchedulerCore re-runs that very timeline without the card."""
+    from repro_torch.serving.stepcache import StepTimeCache
+
+    class RecordedSteps(StepTimeCache):
+        def __init__(self, log=None):
+            super().__init__()
+            self.log = {} if log is None else log
+            self.pos = None if log is None else {}
+
+        def get(self, key):
+            if self.pos is None:
+                self.misses += 1
+                return None
+            i = self.pos[key] = self.pos.get(key, 0) + 1
+            self.hits += 1
+            return self.log[key][i - 1]
+
+        def put(self, key, payload):
+            if self.pos is None:
+                self.log.setdefault(key, []).append(tuple(float(x) for x in payload))
+
+        def replaying(self):
+            return RecordedSteps(self.log)
+
+        def executed(self) -> int:
+            return sum(len(v) for v in self.log.values())
+
+    return RecordedSteps()
+
+
+SCHEDULE_POLICY = dict(max_batch=8, timeout_ms=20.0, max_seq=1024, ttft_slo_ms=200.0)
+
+
+def _timeline(m) -> list:
+    return [(r.rid, r.arrival_s, r.start_s, r.first_token_s, r.done_s) for r in m.responses]
+
+
+def _schedule_run(card, engine, kind: str, workload, wl_name: str, fmt: str,
+                  idle_w: float) -> tuple:
+    """One live run of ``kind`` on ``engine`` (every dispatch executes),
+    read by the card's energy; then its timeline billed again under the
+    measured draw (active) and idle draw.  Returns (the run's line, tokens)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.core import SchedulerCore
+    from repro_torch.serving.scheduler import make_policy
+
+    L = engine.cfg.num_layers
+    steps = _recorded_steps()
+    core = SchedulerCore(engine, make_policy(kind, **SCHEDULE_POLICY), step_cache=steps)
+    graphs = getattr(engine, "graphs", {})
+    replays0 = {b: g.replays for b, g in graphs.items()}
+    before = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    live, card_e = card.measure(lambda: core.run(workload()))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    replayed = {b: g.replays - replays0.get(b, 0) for b, g in graphs.items()}
+    graph_launches = {k: sum(g.launches_per_replay[k] * replayed[b] for b, g in graphs.items())
+                      for k in launches}
+    if steps.hits:
+        raise AssertionError(f"{kind}: {steps.hits} dispatches replayed in a live run")
+    billed = SchedulerCore(engine, make_policy(kind, **SCHEDULE_POLICY),
+                           step_cache=steps.replaying(), active_power_w=card_e["w"],
+                           idle_power_w=idle_w).run(workload())
+    if _timeline(billed) != _timeline(live):
+        raise AssertionError(f"{kind}: the re-billed timeline differs from the live run")
+    tokens = {r.rid: [int(t) for t in r.tokens] for r in live.responses}
+    n_tok = live.total_tokens
+    line = {
+        "phase": "schedule_run", "workload": wl_name, "policy": kind, "engine": engine.name,
+        "format": fmt, "requests": len(live.responses), "tokens": n_tok,
+        "virtual_makespan_s": max(r.done_s for r in live.responses),
+        "ttft_p50_s": live.ttft_percentile(50), "ttft_p95_s": live.ttft_percentile(95),
+        "latency_p50_s": live.latency_percentile(50),
+        "latency_p95_s": live.latency_percentile(95),
+        "tokens_per_s": live.throughput_tok_s,
+        "dispatches_executed": steps.executed(), "dispatches_replayed": steps.hits,
+        "prefills": launches["flash_attention"] // L,
+        "decode_steps": launches["decode_attention"] // L + sum(replayed.values()),
+        "graph_replays": sum(replayed.values()),
+        "wall_s": card_e["s"], "active_s": billed.meter.active_s,
+        "idle_s": billed.meter.idle_s,
+        "energy_method": card.method, "card_j": card_e["j"], "card_mean_w": card_e["w"],
+        "card_sampled_j": card_e["sampled_j"], "power_samples": card_e["samples"],
+        "card_j_per_token": card_e["j"] / n_tok, "idle_w": idle_w,
+        "meter_j_per_token": billed.energy_per_token_j,
+        "meter_active_j_per_token": billed.meter.active_j / n_tok,
+        "meter_j_per_request": billed.energy_per_request_j,
+        "meter_g_per_token": billed.gco2_per_token,
+        "max_memory_allocated": peak,
+        "launches": launches, "graph_replay_launches": graph_launches,
+    }
+    emit(line)
+    return line, tokens
+
+
+def _cb_tokens(engine, workload, num_slots: int, max_seq: int) -> dict:
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    m = ContinuousBatchScheduler(engine, num_slots=num_slots, max_seq=max_seq).run(workload)
+    return {r.rid: [int(t) for t in r.tokens] for r in m.responses}
+
+
+def _schedule_smoke_f32(seed: int) -> dict:
+    """minitron-4b-smoke in f32 on the card: the reference test's workload
+    (4 requests, 8-token prompts, 3 new tokens) gives one token stream
+    through the four policies under SI2; and a free continuous-batch slot
+    steps past max_seq inside SI2's graph (its write is dropped, no device
+    assert) while the busy slot's tokens stay SI1's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engines import CompiledEngine, EagerEngine
+    from repro_torch.models import transformer
+    from repro_torch.serving.request import Request, synth_workload
+    from repro_torch.serving.scheduler import POLICIES, make_scheduler
+
+    cfg = get_arch("minitron-4b-smoke")
+    params = transformer.init_params(cfg, seed, device="cuda")
+    si2 = CompiledEngine(cfg, params, 64)
+    streams = {}
+    for kind in POLICIES:
+        sched = make_scheduler(kind, si2, max_batch=4, timeout_ms=10.0, max_seq=64)
+        if kind == "continuous_batch":
+            sched = make_scheduler(kind, si2, max_batch=2, max_seq=64)
+        m = sched.run(synth_workload(4, 8, 3, cfg.vocab_size, rate_per_s=1000, seed=3))
+        streams[kind] = {r.rid: [int(t) for t in r.tokens] for r in m.responses}
+    for kind, stream in streams.items():
+        if stream != streams["realtime"] or len(stream) != 4:
+            raise AssertionError(f"f32 smoke: {kind}'s tokens {stream} != realtime's "
+                                 f"{streams['realtime']}")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (8, 16)]
+
+    def overflow():
+        return [Request(rid=0, prompt=prompts[0], max_new_tokens=20),
+                Request(rid=1, prompt=prompts[1], max_new_tokens=2)]
+
+    want = _cb_tokens(EagerEngine(cfg, params, 32), overflow(), 2, 32)
+    si2_32 = CompiledEngine(cfg, params, 32)
+    got = _cb_tokens(si2_32, overflow(), 2, 32)
+    torch.cuda.synchronize()
+    free_len = int(si2_32.graphs[2].cache["lengths"][1])
+    if got != want or free_len <= 32:
+        raise AssertionError(f"f32 smoke: the overflow case gave {got} (SI1 {want}), "
+                             f"the free slot's length {free_len}")
+    return {"arch": cfg.name, "dtype": cfg.dtype, "policies_equal": True,
+            "tokens": streams["realtime"], "overflow_free_slot_length": free_len,
+            "overflow_tokens_equal_si1": True}
+
+
+def phase_schedule(seed: int, prompt_len: int = 512, max_new: int = 32) -> dict:
+    """The TD3 schedulers at full width on the card, with its own energy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engines import CompiledEngine, EagerEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving.formats import quantize_params
+    from repro_torch.serving.request import synth_workload
+    from repro_torch.serving.scheduler import POLICIES
+
+    t_phase = time.perf_counter()
+    out = {"phase": "schedule", "smoke_f32": _schedule_smoke_f32(seed)}
+    cfg = get_arch("minitron-4b")
+    max_seq = SCHEDULE_POLICY["max_seq"]
+    card = CardEnergy()
+    if card.name != torch.cuda.get_device_name(0):
+        raise AssertionError(f"NVML device 0 is {card.name}, torch's is "
+                             f"{torch.cuda.get_device_name(0)}")
+    params = transformer.init_params(cfg, seed, device="cuda")
+    engines = {("SI1", "rsm"): EagerEngine(cfg, params, max_seq),
+               ("SI2", "rsm"): CompiledEngine(cfg, params, max_seq),
+               ("SI2", "rsm_int8"): CompiledEngine(cfg, quantize_params(params), max_seq)}
+    # graph captures and first calls stay outside every timed and energy window
+    t0 = time.perf_counter()
+    for (si, _), eng in engines.items():
+        if si == "SI2":
+            for B in range(1, SCHEDULE_POLICY["max_batch"] + 1):
+                eng.warmup(B, prompt_len)
+        logits, _ = eng.prefill_one(np.zeros((1, prompt_len), np.int32))
+        eng.decode_batch(eng.decode_cache(SCHEDULE_POLICY["max_batch"], max_seq),
+                         torch.argmax(logits, -1).expand(SCHEDULE_POLICY["max_batch"]))
+    torch.cuda.synchronize()
+    out.update(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, dtype=cfg.dtype,
+               max_seq=max_seq, policy_args=SCHEDULE_POLICY, warmup_s=time.perf_counter() - t0,
+               energy_method=card.method, gpu=smi())
+    _, idle = card.measure(lambda: time.sleep(2.0))
+    out["idle"] = idle
+    V = cfg.vocab_size
+
+    def burst():
+        return synth_workload(16, prompt_len, max_new, V, rate_per_s=1e6, seed=seed)
+
+    def poisson():
+        return synth_workload(48, prompt_len, max_new, V, rate_per_s=10.0, seed=seed)
+
+    ops.reset_launch_counts()
+    graph_launches = dict.fromkeys(ops.launch_counts(), 0)
+    runs = []
+
+    def run(si, fmt, kind, workload, name):
+        line, tokens = _schedule_run(card, engines[(si, fmt)], kind, workload, name, fmt,
+                                     idle["w"])
+        for k, n in line["graph_replay_launches"].items():
+            graph_launches[k] += n
+        runs.append({k: line[k] for k in (
+            "workload", "policy", "engine", "format", "tokens", "ttft_p50_s", "ttft_p95_s",
+            "latency_p95_s", "tokens_per_s", "card_mean_w", "card_j_per_token",
+            "meter_j_per_token", "meter_active_j_per_token", "decode_steps",
+            "graph_replays")})
+        return tokens
+
+    for kind in ("dynamic_batch", "continuous_batch"):
+        si1 = run("SI1", "rsm", kind, burst, "burst16")
+        si2 = run("SI2", "rsm", kind, burst, "burst16")
+        differ = [rid for rid in si1 if si2.get(rid) != si1[rid]]
+        if differ or len(si2) != 16:
+            raise AssertionError(f"burst {kind}: SI2's tokens differ from SI1's for "
+                                 f"requests {differ}")
+    for kind in POLICIES:
+        run("SI2", "rsm", kind, poisson, "poisson48@10")
+    run("SI1", "rsm", "continuous_batch", poisson, "poisson48@10")
+    run("SI2", "rsm_int8", "continuous_batch", poisson, "poisson48@10")
+    launches = ops.launch_counts()
+    for k in ("flash_attention", "decode_attention", "int8_matmul"):
+        if launches[k] == 0:
+            raise AssertionError(f"schedule phase: {k} was never launched ({launches})")
+    card.close()
+    del engines, params
+    torch.cuda.empty_cache()
+    out.update(burst_si2_tokens_equal_si1=True, runs=runs, launches=launches,
+               graph_replay_launches=graph_launches, seconds=time.perf_counter() - t_phase)
+    emit(out)
+    return out
+
+
+def kernel_line(kernel_cases: dict, serve: dict, schedule: dict) -> dict:
     """One entry per kernel, its numbers at one main-path shape (in bf16; K5
-    in f32, as the model feeds it); every timed case under timed_cases."""
+    in f32, as the model feeds it); every timed case under timed_cases.
+    ``launches`` sums the serve and schedule paths' counts (eager)."""
     main_shape = {"flash_attention": [4, 24, 8, 512, 128],
                   "decode_attention": [4, 8, 3, 1024, 128],
                   "int8_matmul": [4, 3072, 9216],
@@ -897,10 +1269,13 @@ def kernel_line(kernel_cases: dict, serve: dict) -> dict:
         source, replaces = KERNEL_SOURCES[name]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serve["launches"][name],
+            "launches": serve["launches"][name] + schedule["launches"][name],
+            "launches_by_path": {"serve": serve["launches"][name],
+                                 "schedule": schedule["launches"][name]},
             "launches_by_arch": {arch: a["launches"][name]
                                  for arch, a in serve["archs"].items()},
-            "graph_replay_launches": serve["graph_replay_launches"][name],
+            "graph_replay_launches": (serve["graph_replay_launches"][name]
+                                      + schedule["graph_replay_launches"][name]),
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -931,8 +1306,9 @@ def main(argv=None) -> int:
     kernels = phase_kernels(args.seed)
     phase_model_parity(args.seed)
     serve = phase_serve(args.seed)
+    schedule = phase_schedule(args.seed)
     phase_formats(args.seed)
-    emit(kernel_line(kernels, serve))
+    emit(kernel_line(kernels, serve, schedule))
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -124,6 +124,12 @@ class Engine:
     def decode_batch(self, cache, tokens):
         return self._decode(cache, self._tokens(tokens))
 
+    def decode_cache(self, batch: int, max_seq: int) -> dict:
+        """A fresh cache of ``batch`` slots (every leaf zero, ``lengths`` 0)
+        that ``decode_batch`` decodes; slot-pool callers (continuous
+        batching, calibration) take their cache from here."""
+        return transformer.init_cache(self.cfg, batch, max_seq, device=self.device)
+
 
 class EagerEngine(Engine):
     """SI1: no runtime engine -- op-by-op framework dispatch."""
@@ -187,6 +193,21 @@ class CompiledEngine(Engine):
         if g is None:
             g = self.graphs[batch] = self._capture(batch)
         return g
+
+    def decode_cache(self, batch: int, max_seq: int) -> dict:
+        """On the card: the graph's own buffers for ``batch``, zeroed in
+        place (the graph decodes no other cache, and copying one in would
+        cost a whole-cache copy a step).  Their size is the engine's, so
+        another ``max_seq`` raises."""
+        if self.device.type != "cuda":
+            return super().decode_cache(batch, max_seq)
+        if max_seq != self.max_seq:
+            raise ValueError(f"SI2's decode cache holds max_seq {self.max_seq} "
+                             f"entries a slot, not {max_seq}")
+        cache = self._graph(batch).cache
+        for leaf in cache.values():
+            leaf.zero_()
+        return cache
 
     def _prefill(self, tokens):
         if self.device.type != "cuda":

@@ -1,0 +1,3 @@
+"""Energy accounting: the hardware constants (``hw``), the meter that turns
+active and idle seconds into joules and grams (``meter``) and its
+conservation-auditing wrapper (``sanitize``)."""

@@ -235,12 +235,32 @@ def _self_attention_full(p, cfg, x, angles, *, causal=True, window=None):
     return layers.dense(o.reshape(B, S, -1), p["wo"]), (k, v)
 
 
-def _self_attention_decode(p, cfg, x, angles, kc, vc, lengths, *, window=None,
-                           uniform: bool = False):
+def _write_slots(cache, lengths, uniform: bool):
+    """Where each slot writes its new kv entry, once a step for every layer:
+    (position (B,), keep (B, 1, 1), the k and v entries (L, B, K, hd) now
+    at those positions).
+
+    A slot at or past the cache's end (a free slot of a continuous batch
+    keeps stepping) drops its write, as the JAX package's scatter does: it
+    writes back the entry already at the clamped position.  A layer writes
+    only its own entries, so the step's old entries are read once, before
+    the first layer."""
+    B, S = lengths.shape[0], cache["k"].shape[2]
+    if uniform:
+        # lockstep decode pool: every slot writes at slot 0's position
+        lengths = lengths[:1].expand(B)
+    pos = lengths.clamp(max=S - 1)
+    bidx = torch.arange(B, device=lengths.device)
+    return pos, (lengths < S)[:, None, None], cache["k"][:, bidx, pos], cache["v"][:, bidx, pos]
+
+
+def _self_attention_decode(p, cfg, x, angles, kc, vc, lengths, write, *, window=None):
     """One-token self attention against a cache.
 
-    x: (B, 1, D); kc/vc: (B, Smax, K, hd); lengths: (B,) BEFORE this token.
-    Writes the new kv at ``lengths`` into kc/vc in place; returns out (B,1,D).
+    x: (B, 1, D); kc/vc: (B, Smax, K, hd); lengths: (B,) BEFORE this token;
+    write: (position, keep, old k, old v) from ``_write_slots``, the old
+    entries this layer's.  Writes the new kv into kc/vc in place; returns
+    out (B,1,D).
 
     When a sliding window is active and much smaller than the cache, only the
     last ``window`` cache entries are gathered and attended -- decode compute
@@ -252,13 +272,9 @@ def _self_attention_decode(p, cfg, x, angles, kc, vc, lengths, *, window=None,
     bidx = torch.arange(B, device=x.device)
     # the JAX package writes functionally into a donated cache; here the
     # write is in place, with index_put_, and reads lengths on the device
-    if uniform:
-        # lockstep decode pool: every slot writes at slot 0's position
-        pos = lengths[:1].expand(B)
-    else:
-        pos = lengths
-    kc.index_put_((bidx, pos), k[:, 0].to(kc.dtype))
-    vc.index_put_((bidx, pos), v[:, 0].to(vc.dtype))
+    pos, keep, k_old, v_old = write
+    kc.index_put_((bidx, pos), torch.where(keep, k[:, 0].to(kc.dtype), k_old))
+    vc.index_put_((bidx, pos), torch.where(keep, v[:, 0].to(vc.dtype), v_old))
     if window is not None and S > 2 * window:
         new_len = lengths + 1
         start = torch.clamp(new_len - window, min=0)                     # (B,)
@@ -470,11 +486,12 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions=None,
     else:
         angles = rope.rope_angles(lengths[:, None], cfg.head_dim, cfg.rope_theta)
 
+    pos, keep, k_old, v_old = _write_slots(cache, lengths, uniform_lengths)
     for i, lp in enumerate(_layers(params, cfg)):
         h = _self_attention_decode(
             lp["attn"], cfg, layers.rms_norm(x, lp["ln1"], cfg.norm_eps),
-            angles, cache["k"][i], cache["v"][i], lengths, window=window,
-            uniform=uniform_lengths,
+            angles, cache["k"][i], cache["v"][i], lengths,
+            (pos, keep, k_old[i], v_old[i]), window=window,
         )
         x = x + h
         h, _ = _ffn(lp, cfg, layers.rms_norm(x, lp["ln2"], cfg.norm_eps))

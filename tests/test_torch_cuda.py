@@ -466,3 +466,64 @@ def test_si2_graph_tokens_equal_si1_moe_and_ssm(gen, arch):
     else:
         assert per_step["moe_gmm"] == 3 * cfg.num_layers
         assert per_step["decode_attention"] == cfg.num_layers
+
+
+def _cb_tokens(engine, wl, num_slots, max_seq):
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    m = ContinuousBatchScheduler(engine, num_slots=num_slots, max_seq=max_seq).run(wl)
+    return {r.rid: np.asarray(r.tokens).tolist() for r in m.responses}
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b-smoke", "rwkv6-3b-smoke"])
+def test_si2_calibrate_and_continuous_batch_equal_si1(gen, arch):
+    """SI2 decodes the slot cache it hands out (its graph's buffers): the
+    calibration and a continuous batch run, and the batch's tokens are SI1's."""
+    from repro_torch.serving.request import synth_workload
+    from repro_torch.serving.stepcache import StepTimeCache, calibrate
+
+    cfg = get_arch(arch)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    si2 = CompiledEngine(cfg, params, 64)
+    cache = calibrate(si2, StepTimeCache(), batch_sizes=[1, 2], prompt_len=8, max_new=3,
+                      vocab=cfg.vocab_size, num_slots=4, max_seq=64)
+    assert ("decode", 4) in cache.to_payload() and si2.graphs[4].replays >= 2
+    wl = lambda: synth_workload(7, 8, 5, cfg.vocab_size, rate_per_s=300, seed=4)  # noqa: E731
+    want = _cb_tokens(EagerEngine(cfg, params, 64), wl(), 4, 64)
+    replays = si2.graphs[4].replays
+    got = _cb_tokens(si2, wl(), 4, 64)
+    assert len(got) == 7 and got == want
+    assert si2.graphs[4].replays > replays
+
+
+def test_si2_free_slot_past_max_seq_in_a_graph(gen):
+    """A free slot steps past max_seq inside the captured graph: its write
+    is dropped (no device assert) and the busy slot's tokens are SI1's."""
+    from repro_torch.serving.request import Request
+
+    cfg = get_arch("minitron-4b-smoke")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (8, 16)]
+    wl = lambda: [Request(rid=0, prompt=prompts[0], max_new_tokens=20),  # noqa: E731
+                  Request(rid=1, prompt=prompts[1], max_new_tokens=2)]
+    want = _cb_tokens(EagerEngine(cfg, params, 32), wl(), 2, 32)
+    si2 = CompiledEngine(cfg, params, 32)
+    got = _cb_tokens(si2, wl(), 2, 32)
+    torch.cuda.synchronize()
+    assert got == want and len(got[0]) == 20
+    assert int(si2.graphs[2].cache["lengths"][1]) > 32
+
+
+def test_si2_decode_cache_is_the_graphs_and_sized_by_the_engine(gen):
+    cfg = get_arch("minitron-4b-smoke")
+    si2 = CompiledEngine(cfg, T.init_params(cfg, seed=0, device="cuda"), 64)
+    si2.warmup(3, 8)
+    cache = si2.decode_cache(3, 64)
+    assert cache is si2.graphs[3].cache
+    assert all(not bool(leaf.any()) for leaf in cache.values())
+    with pytest.raises(ValueError, match="max_seq"):
+        si2.decode_cache(3, 128)
+    with pytest.raises(ValueError, match="decodes only the cache"):
+        si2.decode_batch(T.init_cache(cfg, 3, 64, device="cuda"),
+                         torch.zeros(3, dtype=torch.int32, device="cuda"))
