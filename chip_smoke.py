@@ -48,6 +48,23 @@ Phases, each printed as one JSON line:
                 the run's timeline is billed again by a second core under
                 those measured powers (schedule_run lines, then one
                 schedule line)
+  fleet         the replica fleet (routers, autoscaler, disaggregation,
+                chaos, telemetry, monitor) on the card: first minitron-4b-
+                smoke in f32 (two continuous-batching replicas of one SI2
+                engine, alone and beside a dynamic-batching endpoint, give
+                every request one SI1 core's tokens: each pool decodes its
+                own slot cache), then full-width minitron-4b (bf16, max_seq
+                1024, 512-token prompts, 32 new tokens) on two SI2 engines
+                (rsm, rsm_int8) calibrated at B = 1..8: chat (32 Poisson
+                requests at 6.67 req/s) and bulk (16 at 3.33) under
+                round_robin and greenest with an autoscaler, chat
+                disaggregated (1 prefill + 1 decode replica), chat on 2
+                replicas with a crash of chat/r0 at 1.5 s, and chat on 2
+                continuous-batching replicas.  Every dispatch executes; the
+                card's energy is read around each run, and a second fleet
+                replays the run's durations, billed at the measured draw,
+                traced and monitored (one fleet_run line per run, then one
+                fleet line)
   formats       rsm_int8 on disk -> load -> the same tokens as in memory;
                 an 8-layer model serves rsm_int8 behind the norm-gain fence
 Then the kernel summary line, the card's name and power limit, and last
@@ -58,9 +75,11 @@ device it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -909,7 +928,8 @@ class CardEnergy:
     (nvmlDeviceGetTotalEnergyConsumption, mJ) or, where the board reports
     that as not supported, its power (nvmlDeviceGetPowerUsage, mW) sampled
     by a thread at 50 Hz and integrated.  The power is sampled either way,
-    as a cross-check of the counter.  The card's energy, not the host's."""
+    as a cross-check of the counter.  The card's energy, not the host's:
+    NVML's device ``index`` must be torch's (their names agree)."""
 
     SAMPLE_S = 0.02
 
@@ -935,6 +955,11 @@ class CardEnergy:
         name = ctypes.create_string_buffer(96)
         self._check(lib.nvmlDeviceGetName(self._handle, name, 96), "nvmlDeviceGetName")
         self.name = name.value.decode()
+        import torch
+
+        if self.name != torch.cuda.get_device_name(index):
+            raise AssertionError(f"NVML device {index} is {self.name}, torch's is "
+                                 f"{torch.cuda.get_device_name(index)}")
         mj = ctypes.c_ulonglong()
         rc = lib.nvmlDeviceGetTotalEnergyConsumption(self._handle, ctypes.byref(mj))
         if rc == NVML_SUCCESS:
@@ -1006,11 +1031,13 @@ class CardEnergy:
         self._check(self._lib.nvmlShutdown(), "nvmlShutdown")
 
 
-def _recorded_steps():
+def _recorded_steps_class():
     """A StepTimeCache that never hits while it records, so every dispatch
     of a live run executes on the card, and keeps each measured duration in
     call order; its ``replaying()`` copy hands them back in that order, so a
-    second SchedulerCore re-runs that very timeline without the card."""
+    second SchedulerCore re-runs that very timeline without the card.  Its
+    estimates (``estimate_generate``, ``has_shape``) answer from what it was
+    seeded with (``seed_from``), never from what it records."""
     from repro_torch.serving.stepcache import StepTimeCache
 
     class RecordedSteps(StepTimeCache):
@@ -1037,7 +1064,30 @@ def _recorded_steps():
         def executed(self) -> int:
             return sum(len(v) for v in self.log.values())
 
-    return RecordedSteps()
+        def executed_s(self) -> float:
+            return sum(sum(d) for v in self.log.values() for d in v)
+
+    return RecordedSteps
+
+
+def _engine_graphs(engine) -> list:
+    """Every decode graph of an engine: generate's, one per batch size, and
+    the slot-pool graphs ``decode_cache`` captured (none under SI1)."""
+    return list(getattr(engine, "graphs", {}).values()) + list(getattr(engine, "slot_graphs", []))
+
+
+def _graph_replays(engine) -> dict:
+    return {id(g): g.replays for g in _engine_graphs(engine)}
+
+
+def _replayed_since(engine, replays0: dict, launches: dict) -> tuple:
+    """({graph id: replays since ``replays0``}, the kernel launches those
+    replays made, by kernel)."""
+    graphs = _engine_graphs(engine)
+    replayed = {id(g): g.replays - replays0.get(id(g), 0) for g in graphs}
+    graph_launches = {k: sum(g.launches_per_replay[k] * replayed[id(g)] for g in graphs)
+                      for k in launches}
+    return replayed, graph_launches
 
 
 SCHEDULE_POLICY = dict(max_batch=8, timeout_ms=20.0, max_seq=1024, ttft_slo_ms=200.0)
@@ -1059,18 +1109,15 @@ def _schedule_run(card, engine, kind: str, workload, wl_name: str, fmt: str,
     from repro_torch.serving.scheduler import make_policy
 
     L = engine.cfg.num_layers
-    steps = _recorded_steps()
+    steps = _recorded_steps_class()()
     core = SchedulerCore(engine, make_policy(kind, **SCHEDULE_POLICY), step_cache=steps)
-    graphs = getattr(engine, "graphs", {})
-    replays0 = {b: g.replays for b, g in graphs.items()}
+    replays0 = _graph_replays(engine)
     before = ops.launch_counts()
     torch.cuda.reset_peak_memory_stats()
     live, card_e = card.measure(lambda: core.run(workload()))
     peak = torch.cuda.max_memory_allocated()
     launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
-    replayed = {b: g.replays - replays0.get(b, 0) for b, g in graphs.items()}
-    graph_launches = {k: sum(g.launches_per_replay[k] * replayed[b] for b, g in graphs.items())
-                      for k in launches}
+    replayed, graph_launches = _replayed_since(engine, replays0, launches)
     if steps.hits:
         raise AssertionError(f"{kind}: {steps.hits} dispatches replayed in a live run")
     billed = SchedulerCore(engine, make_policy(kind, **SCHEDULE_POLICY),
@@ -1155,7 +1202,7 @@ def _schedule_smoke_f32(seed: int) -> dict:
     si2_32 = CompiledEngine(cfg, params, 32)
     got = _cb_tokens(si2_32, overflow(), 2, 32)
     torch.cuda.synchronize()
-    free_len = int(si2_32.graphs[2].cache["lengths"][1])
+    free_len = int(si2_32.slot_graphs[0].cache["lengths"][1])
     if got != want or free_len <= 32:
         raise AssertionError(f"f32 smoke: the overflow case gave {got} (SI1 {want}), "
                              f"the free slot's length {free_len}")
@@ -1182,9 +1229,6 @@ def phase_schedule(seed: int, prompt_len: int = 512, max_new: int = 32) -> dict:
     cfg = get_arch("minitron-4b")
     max_seq = SCHEDULE_POLICY["max_seq"]
     card = CardEnergy()
-    if card.name != torch.cuda.get_device_name(0):
-        raise AssertionError(f"NVML device 0 is {card.name}, torch's is "
-                             f"{torch.cuda.get_device_name(0)}")
     params = transformer.init_params(cfg, seed, device="cuda")
     engines = {("SI1", "rsm"): EagerEngine(cfg, params, max_seq),
                ("SI2", "rsm"): CompiledEngine(cfg, params, max_seq),
@@ -1252,10 +1296,436 @@ def phase_schedule(seed: int, prompt_len: int = 512, max_new: int = 32) -> dict:
     return out
 
 
-def kernel_line(kernel_cases: dict, serve: dict, schedule: dict) -> dict:
+# -- the fleet phase -----------------------------------------------------------------
+
+FLEET_POLICY = dict(max_batch=8, timeout_ms=20.0, max_seq=1024)
+FLEET_CRASH = ("chat/r0", 1.5)               # (replica, virtual s) of the chaos run
+# the replays' monitor: window, budgets, and (TTFT ms, deadline s) per SLO class
+FLEET_MONITOR = dict(window_s=0.25, incident_gap_s=1.0, budgets=(
+    dict(name="crashes", kind="crashes", budget=1.0, horizon_s=60.0, fast_window_s=0.5,
+         slow_window_s=1.0, page_burn=50.0, warn_burn=10.0),
+    dict(name="chat-ttft", kind="slo", slo_class="interactive", objective=0.9,
+         fast_window_s=0.5, slow_window_s=1.0, page_burn=8.0, warn_burn=2.0),
+    dict(name="joules", kind="joules", budget=3000.0, horizon_s=10.0, fast_window_s=0.5,
+         slow_window_s=1.0, page_burn=10.0, warn_burn=2.0),
+    dict(name="loss", kind="loss", budget=50.0, horizon_s=10.0, fast_window_s=0.5,
+         slow_window_s=1.0, page_burn=10.0, warn_burn=2.0)))
+FLEET_SLO_TARGETS = {("chat", "interactive"): (500.0, 0.0)}
+
+
+@contextlib.contextmanager
+def _replica_caches(make):
+    """While open, ReplicaFleet builds each replica's step cache with
+    ``make()`` in place of ``StepTimeCache()``, in spawn order."""
+    from repro_torch.serving import fleet as fleet_mod
+
+    saved = fleet_mod.StepTimeCache
+    fleet_mod.StepTimeCache = make
+    try:
+        yield
+    finally:
+        fleet_mod.StepTimeCache = saved
+
+
+def _slot_captures(engines) -> dict:
+    """The SI2 slot-pool graphs the engines captured so far (F5: one per
+    slot cache handed out at once): count, capture seconds and bytes."""
+    graphs = [g for e in engines for g in getattr(e, "slot_graphs", [])]
+    return {"count": len(graphs), "seconds": sum(g.capture_s for g in graphs),
+            "cache_bytes": sum(g.cache_bytes for g in graphs)}
+
+
+def _make_fleet(run: dict, calib: dict, powers=None, telemetry=None, monitor=None):
+    """The fleet ``run`` describes; ``powers`` = (active W, idle W) of every
+    replica, else the meter's defaults."""
+    from repro_torch.serving.chaos import (ChaosEvent, ChaosRuntime, ChaosSpec,
+                                           RetryRuntime, RetrySpec)
+    from repro_torch.serving.fleet import Autoscaler, EndpointSpec, ReplicaFleet
+
+    kw = {}
+    if run.get("crash"):
+        target, t_s = run["crash"]
+        kw["chaos"] = ChaosRuntime.from_spec(ChaosSpec(events=(
+            ChaosEvent(kind="crash", t_s=t_s, target=target),)))
+        kw["retry"] = RetryRuntime.from_spec(RetrySpec())
+    fleet = ReplicaFleet(router=run["router"], autoscaler=Autoscaler(**run["autoscaler"]),
+                         telemetry=telemetry, monitor=monitor, **kw)
+    for ep in run["endpoints"]:
+        ep = dict(ep)
+        fmt = ep.pop("format")
+        if powers is not None:
+            ep.update(active_power_w=powers[0], idle_power_w=powers[1])
+        fleet.add_endpoint(EndpointSpec(warm_cache=calib[fmt], **ep))
+    return fleet
+
+
+def _fleet_run(card, run: dict, calib: dict, idle_w: float, engines: list) -> dict:
+    """One live fleet run (every dispatch executes on the card, each
+    replica's step cache records its measured durations), read by the
+    card's energy; then a second fleet, whose replicas replay those
+    durations, bills the same timeline at the measured draw (active) and
+    idle draw, traced and monitored.  Returns the run's line."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.admission import kv_cache_bytes
+    from repro_torch.serving.monitor import BudgetSpec, MonitorRuntime, MonitorSpec
+    from repro_torch.serving.telemetry import TraceRecorder, to_perfetto, validate_trace
+
+    name = run["name"]
+    cfg = run["endpoints"][0]["engine"].cfg
+    L = cfg.num_layers
+    Recorder = _recorded_steps_class()
+    recorders = []
+
+    def record():
+        recorders.append(Recorder())
+        return recorders[-1]
+
+    replays0 = [_graph_replays(e) for e in engines]
+    slots0 = _slot_captures(engines)
+    with _replica_caches(record):
+        fleet = _make_fleet(run, calib)
+        spawned = len(fleet.replicas)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        live, card_e = card.measure(lambda: fleet.run(run["workloads"]()))
+        launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    replayed, graph_launches = 0, dict.fromkeys(launches, 0)
+    for e, r0 in zip(engines, replays0):
+        rep, gl = _replayed_since(e, r0, launches)
+        replayed += sum(rep.values())
+        for k, n in gl.items():
+            graph_launches[k] += n
+    if any(r.hits for r in recorders):
+        raise AssertionError(f"fleet {name}: dispatches replayed in a live run")
+    live_timeline = _timeline(live.fleet)
+    tokens = {r.rid: [int(t) for t in r.tokens] for r in live.fleet.responses}
+    live_replicas = [(r.name, r.created_s, r.ready_s, r.stopped_s) for r in fleet.replicas]
+    handoff_bytes = sum(e["kv_bytes"] for e in fleet.handoff_events)
+    handoffs = len(fleet.handoff_events)
+    captured = _slot_captures(engines)
+    # the live fleet goes first: its slot caches return to their engine's
+    # free list, so the replay's continuous-batching replicas capture nothing
+    del fleet
+    gc.collect()
+
+    rec = TraceRecorder()
+    mon = MonitorRuntime(MonitorSpec(
+        enabled=True, window_s=FLEET_MONITOR["window_s"],
+        incident_gap_s=FLEET_MONITOR["incident_gap_s"],
+        budgets=tuple(BudgetSpec(**b) for b in FLEET_MONITOR["budgets"])),
+        rec, FLEET_SLO_TARGETS)
+    replaying = iter([r.replaying() for r in recorders])
+    with _replica_caches(lambda: next(replaying)):
+        billed_fleet = _make_fleet(run, calib, powers=(card_e["w"], idle_w), telemetry=rec,
+                                   monitor=mon)
+        billed = billed_fleet.run(run["workloads"]())
+    mon.finalize()
+    if _timeline(billed.fleet) != live_timeline:
+        raise AssertionError(f"fleet {name}: the billed replay's timeline differs from the "
+                             "live run's")
+    if [(r.name, r.created_s, r.ready_s, r.stopped_s)
+            for r in billed_fleet.replicas] != live_replicas:
+        raise AssertionError(f"fleet {name}: the replay's replicas differ from the live run's")
+    executed = sum(r.executed() for r in recorders)
+    hits = sum(c.core.step_cache.hits for c in billed_fleet.replicas)
+    if hits != executed:
+        raise AssertionError(f"fleet {name}: {executed} dispatches executed, {hits} replayed")
+    doc = to_perfetto(rec)
+    problems = validate_trace(doc)
+    if problems:
+        raise AssertionError(f"fleet {name}: invalid trace: {problems[:5]}")
+
+    m = billed.fleet.meter
+    n_tok = live.fleet.total_tokens
+    executed_s = sum(r.executed_s() for r in recorders)
+    by_source = {src: {"active_j": d["active_j"], "idle_j": d["idle_j"], "lost_j": d["lost_j"],
+                       "xfer_j": d["xfer_j"]} for src, d in sorted(m.by_source.items())}
+    for unit in ("j", "g"):
+        parts = sum(d[f"{b}_{unit}"] for d in m.by_source.values()
+                    for b in ("active", "idle", "preempt", "xfer", "lost"))
+        total = getattr(m, f"total_{unit}")
+        if not math.isclose(parts, total, rel_tol=1e-9):
+            raise AssertionError(f"fleet {name}: the fleet meter's {unit} {total} != its "
+                                 f"replicas' {parts}")
+    stats = billed.fleet.fleet
+    # the merged meter holds joules; its seconds are at its own rates
+    billed_s = sum(r.core.meter.active_s + r.core.meter.lost_s for r in billed_fleet.replicas)
+    line = {
+        "phase": "fleet_run", "run": name, "router": run["router"],
+        "autoscaler": run["autoscaler"], "requests": len(live.fleet.responses),
+        "tokens": n_tok, "virtual_makespan_s": max(r.done_s for r in live.fleet.responses),
+        "endpoints": {
+            ep: {"ttft_p50_s": em.ttft_percentile(50), "ttft_p95_s": em.ttft_percentile(95),
+                 "latency_p50_s": em.latency_percentile(50),
+                 "latency_p95_s": em.latency_percentile(95),
+                 "tokens_per_s": em.throughput_tok_s, "requests": len(em.responses),
+                 "tokens": em.total_tokens}
+            for ep, em in live.endpoints.items()},
+        "wall_s": card_e["s"], "energy_method": card.method, "card_j": card_e["j"],
+        "card_mean_w": card_e["w"], "card_sampled_j": card_e["sampled_j"],
+        "power_samples": card_e["samples"], "card_j_per_token": card_e["j"] / n_tok,
+        "idle_w": idle_w,
+        "meter_j_per_token": billed.fleet.energy_per_token_j,
+        "meter_active_j_per_token": m.active_j / n_tok,
+        "meter_j": m.total_j, "meter_active_j": m.active_j, "meter_idle_j": m.idle_j,
+        "meter_lost_j": m.lost_j, "meter_xfer_j": m.xfer_j, "meter_preempt_j": m.preempt_j,
+        "meter_g": m.total_g,
+        "meter_work_over_card": (m.active_j + m.lost_j + m.preempt_j) / card_e["j"],
+        "replicas": by_source, "replicas_created": stats["replicas_created"],
+        "replica_seconds": stats["replica_seconds"], "peak_replicas": stats["peak_replicas"],
+        "cold_starts": stats["cold_starts"], "scale_events": stats["scale_events"],
+        "dispatches_executed": executed, "executed_s": executed_s,
+        "billed_active_s": billed_s, "executed_over_billed": executed_s / billed_s,
+        "prefills": launches["flash_attention"] // L,
+        "decode_steps": launches["decode_attention"] // L + replayed,
+        "graph_replays": replayed, "launches": launches,
+        "graph_replay_launches": graph_launches, "max_memory_allocated": peak,
+        "si2_slot_captures": {"in_run": captured["count"] - slots0["count"],
+                              "replicas_at_start": spawned, **captured},
+        "trace_events": len(doc["traceEvents"]), "trace_valid": True,
+        "monitor_windows": len(mon.windows), "alerts": len(mon.alerts),
+        "incidents": [{k: i[k] for k in ("start", "end", "severity", "budgets", "endpoints",
+                                          "alerts", "lost_j")} for i in mon.incidents],
+        "alerts_by_budget": {b: sum(a["budget"] == b for a in mon.alerts)
+                             for b in sorted({a["budget"] for a in mon.alerts})},
+    }
+    if handoffs:
+        line.update(handoffs=handoffs, handoff_kv_bytes=handoff_bytes,
+                    kv_cache_bytes_per_prompt=kv_cache_bytes(cfg, run["prompt_len"]))
+    if run.get("crash"):
+        line.update(workload_seed=run["workload_seed"], chaos_log=billed_fleet.chaos_log, availability=stats["availability"],
+                    submitted_by_class=stats["submitted_by_class"],
+                    delivered_by_class=stats["delivered_by_class"],
+                    drops_by_class=stats["drops_by_class"], retries=stats["retries"])
+        for c, n in stats["submitted_by_class"].items():
+            if n != stats["delivered_by_class"].get(c, 0) + stats["drops_by_class"].get(c, 0):
+                raise AssertionError(f"fleet {name}: class {c}: {n} submitted, not all "
+                                     "delivered or dropped")
+        if not m.lost_j > 0:
+            raise AssertionError(f"fleet {name}: the crash lost no in-flight work")
+    if not run.get("bills_both_legs"):
+        # the meter bills what the card executed: its work joules sit just
+        # below the counter's (the host's gaps between dispatches)
+        if not 0.9 <= line["meter_work_over_card"] <= 1.0 + 1e-6:
+            raise AssertionError(f"fleet {name}: meter work J / card J = "
+                                 f"{line['meter_work_over_card']}")
+    emit(line)
+    return {"line": line, "tokens": tokens}
+
+
+def _fleet_runs(seed: int, cfg, engines: dict, prompt_len: int, max_new: int) -> list:
+    """The fleet phase's runs at full width: (name, fleet description)."""
+    from repro_torch.serving.admission import DisaggRuntime, DisaggSpec
+    from repro_torch.serving.scheduler import (DecodePhasePolicy, PrefillPhasePolicy,
+                                               make_policy)
+    from repro_torch.workload import poisson
+
+    V = cfg.vocab_size
+
+    def chat(s=seed):
+        return poisson(32, prompt_len, max_new, V, rate_per_s=6.67, seed=s,
+                       priority="interactive")
+
+    # the chaos run's chat stream: the first seed from ``seed`` on that puts
+    # two arrivals in the quarter second before the crash, so the crash
+    # finds chat/r0 mid-dispatch and loses work (the lost bucket's path)
+    crash_t = FLEET_CRASH[1]
+    crash_seed = next(s for s in range(seed, seed + 100)
+                      if sum(crash_t - 0.25 <= r.arrival_s < crash_t for r in chat(s)) >= 2)
+
+    def bulk():
+        return poisson(16, prompt_len, max_new, V, rate_per_s=3.33, seed=seed + 1, rid0=10**6)
+
+    def dynamic():
+        return make_policy("dynamic_batch", **FLEET_POLICY)
+
+    def continuous():
+        return make_policy("continuous_batch", **FLEET_POLICY)
+
+    def endpoint(name, fmt, policy, n=None, **kw):
+        fixed = {} if n is None else dict(min_replicas=n, max_replicas=n, initial_replicas=n)
+        return dict(name=name, format=fmt, engine=engines[fmt], policy_factory=policy,
+                    **fixed, **kw)
+
+    routers = [dict(
+        name=f"routers_{router}", router=router,
+        autoscaler=dict(window_s=1.0, cold_start_s=0.5),
+        endpoints=[endpoint("chat", "rsm", dynamic, ttft_slo_s=0.5, min_replicas=1,
+                            max_replicas=4, initial_replicas=1),
+                   endpoint("bulk", "rsm_int8", dynamic, min_replicas=1, max_replicas=4,
+                            initial_replicas=1)],
+        workloads=lambda: {"chat": chat(), "bulk": bulk()}) for router in ("round_robin",
+                                                                          "greenest")]
+    disagg = DisaggRuntime.from_spec(
+        DisaggSpec(enabled=True, prefill_replicas=1, decode_replicas=1), cfg,
+        prefill_policy_factory=lambda: PrefillPhasePolicy(FLEET_POLICY["max_batch"],
+                                                          FLEET_POLICY["timeout_ms"]),
+        decode_policy_factory=lambda: DecodePhasePolicy(FLEET_POLICY["max_batch"],
+                                                        FLEET_POLICY["timeout_ms"]))
+    return routers + [
+        dict(name="disagg", router="least_loaded",
+             autoscaler=dict(window_s=1.0, cold_start_s=0.5),
+             endpoints=[endpoint("chat", "rsm", dynamic, ttft_slo_s=0.5, disagg=disagg)],
+             workloads=lambda: {"chat": chat()}, bills_both_legs=True),
+        # fixed pool, the autoscaler replaces the crashed replica
+        dict(name="chaos", router="least_loaded",
+             autoscaler=dict(window_s=0.25, cold_start_s=0.5),
+             endpoints=[endpoint("chat", "rsm", dynamic, 2, ttft_slo_s=0.5)],
+             workloads=lambda: {"chat": chat(crash_seed)}, crash=FLEET_CRASH,
+             workload_seed=crash_seed),
+        # F5's path at full width: two continuous pools of one SI2 engine
+        dict(name="continuous", router="least_loaded",
+             autoscaler=dict(window_s=1.0, cold_start_s=0.5),
+             endpoints=[endpoint("chat", "rsm", continuous, 2, ttft_slo_s=0.5)],
+             workloads=lambda: {"chat": chat()}),
+    ]
+
+
+def _fleet_smoke_f32(seed: int) -> dict:
+    """minitron-4b-smoke in f32 on one SI2 engine: a two-replica
+    continuous-batching fleet (fixed pool, least_loaded) with every
+    dispatch executed gives every request the tokens one SI1 core gives
+    it; and so does the same fleet beside a dynamic-batching endpoint on
+    the same engine (``generate`` next to live slot pools)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engines import CompiledEngine, EagerEngine
+    from repro_torch.models import transformer
+    from repro_torch.serving.fleet import EndpointSpec, ReplicaFleet
+    from repro_torch.serving.scheduler import make_policy
+    from repro_torch.workload import poisson
+
+    cfg = get_arch("minitron-4b-smoke")
+    params = transformer.init_params(cfg, seed, device="cuda")
+    V = cfg.vocab_size
+
+    def chat():
+        return poisson(24, 8, 6, V, rate_per_s=300.0, seed=seed)
+
+    def bulk():
+        return poisson(12, 8, 6, V, rate_per_s=150.0, seed=seed + 1, rid0=1000)
+
+    want = _cb_tokens(EagerEngine(cfg, params, 64), chat() + bulk(), 4, 64)
+    si2 = CompiledEngine(cfg, params, 64)
+    out = {"arch": cfg.name, "dtype": cfg.dtype}
+    for case, workloads in (("continuous", {"chat": chat()}),
+                            ("continuous_and_dynamic", {"chat": chat(), "bulk": bulk()})):
+        fleet = ReplicaFleet(router="least_loaded")
+        fleet.add_endpoint(EndpointSpec(
+            name="chat", engine=si2, use_step_cache=False, min_replicas=2, max_replicas=2,
+            initial_replicas=2,
+            policy_factory=lambda: make_policy("continuous_batch", max_batch=4, max_seq=64)))
+        if "bulk" in workloads:
+            fleet.add_endpoint(EndpointSpec(
+                name="bulk", engine=si2, use_step_cache=False, min_replicas=1,
+                max_replicas=1, initial_replicas=1,
+                policy_factory=lambda: make_policy("dynamic_batch", max_batch=4,
+                                                   timeout_ms=10.0)))
+        res = fleet.run(workloads)
+        got = {r.rid: [int(t) for t in r.tokens] for r in res.fleet.responses}
+        pools = [r.core.policy.kv for r in fleet.replicas if r.endpoint == "chat"]
+        graphs = {id(si2.graph_of(kv)) for kv in pools}
+        offered = {r.name: r.offered for r in fleet.replicas}
+        differ = [rid for rid in got if got[rid] != want[rid]]
+        if differ or len(got) != sum(len(w) for w in workloads.values()):
+            raise AssertionError(f"fleet f32 smoke {case}: tokens differ from one SI1 core's "
+                                 f"for requests {differ}")
+        if len(graphs) != 2 or 0 in offered.values():
+            raise AssertionError(f"fleet f32 smoke {case}: the two pools share a graph or a "
+                                 f"replica got no work ({offered})")
+        out[case] = {"requests": len(got), "tokens_equal_si1": True, "offered": offered}
+        del fleet, res, pools
+    out["si2_slot_captures"] = _slot_captures([si2])
+    return out
+
+
+def phase_fleet(seed: int, prompt_len: int = 512, max_new: int = 32) -> dict:
+    """The replica fleet at full width on the card, with its own energy."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engines import CompiledEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving.formats import quantize_params
+    from repro_torch.serving.stepcache import StepTimeCache, calibrate
+
+    t_phase = time.perf_counter()
+    gc.collect()                  # the earlier phases' engines, cycles included
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    # what stays allocated then is cuBLAS's workspace of each pool stream a
+    # capture or a timed graph used; PyTorch keeps one per stream
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    out = {"phase": "fleet", "memory_allocated_at_start": held,
+           "memory_allocated_without_cublas_workspaces":
+               torch.cuda.memory_allocated() if clear is not None else None,
+           "smoke_f32": _fleet_smoke_f32(seed)}
+    cfg = get_arch("minitron-4b")
+    max_seq = FLEET_POLICY["max_seq"]
+    card = CardEnergy()
+    params = transformer.init_params(cfg, seed, device="cuda")
+    engines = {"rsm": CompiledEngine(cfg, params, max_seq),
+               "rsm_int8": CompiledEngine(cfg, quantize_params(params), max_seq)}
+    # calibration, graph captures and first calls stay outside every
+    # energy window: generate at B = 1..8 and the 8-slot pool's primitives
+    t0 = time.perf_counter()
+    calib = {fmt: calibrate(eng, StepTimeCache(), batch_sizes=range(1, 9),
+                            prompt_len=prompt_len, max_new=max_new, vocab=cfg.vocab_size,
+                            num_slots=FLEET_POLICY["max_batch"], max_seq=max_seq)
+             for fmt, eng in engines.items()}
+    torch.cuda.synchronize()
+    out.update(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, dtype=cfg.dtype,
+               max_seq=max_seq, prompt_len=prompt_len, max_new=max_new,
+               policy_args=FLEET_POLICY, warmup_s=time.perf_counter() - t0,
+               calibration={fmt: {" ".join(map(str, k)): v for k, v in c.to_payload().items()}
+                            for fmt, c in calib.items()},
+               energy_method=card.method, gpu=smi())
+    _, idle = card.measure(lambda: time.sleep(2.0))
+    out["idle"] = idle
+    # the phase's launches are its runs' own: each run counts from 0 just
+    # before its fleet.run and reads the counts just after
+    runs = []
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    graph_launches = dict(launches)
+    for run in _fleet_runs(seed, cfg, engines, prompt_len, max_new):
+        run["prompt_len"] = prompt_len
+        done = _fleet_run(card, run, calib, idle["w"], list(engines.values()))
+        line = done["line"]
+        for k in launches:
+            launches[k] += line["launches"][k]
+            graph_launches[k] += line["graph_replay_launches"][k]
+        runs.append({k: line[k] for k in (
+            "run", "router", "tokens", "card_mean_w", "card_j_per_token", "meter_j_per_token",
+            "meter_active_j_per_token", "meter_work_over_card", "replica_seconds",
+            "cold_starts", "executed_over_billed", "decode_steps", "graph_replays")})
+    for k in ("flash_attention", "decode_attention", "int8_matmul"):
+        if launches[k] + graph_launches[k] == 0:
+            raise AssertionError(f"fleet phase: {k} was never launched in a run "
+                                 f"({launches}, replays {graph_launches})")
+    card.close()
+    out.update(runs=runs, launches=launches, graph_replay_launches=graph_launches,
+               si2_slot_captures=_slot_captures(engines.values()),
+               seconds=time.perf_counter() - t_phase)
+    del engines, params, calib
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def kernel_line(kernel_cases: dict, serve: dict, schedule: dict, fleet: dict) -> dict:
     """One entry per kernel, its numbers at one main-path shape (in bf16; K5
     in f32, as the model feeds it); every timed case under timed_cases.
-    ``launches`` sums the serve and schedule paths' counts (eager)."""
+    ``launches`` sums the serve, schedule and fleet paths' counts (eager)."""
+    paths = {"serve": serve, "schedule": schedule, "fleet": fleet}
     main_shape = {"flash_attention": [4, 24, 8, 512, 128],
                   "decode_attention": [4, 8, 3, 1024, 128],
                   "int8_matmul": [4, 3072, 9216],
@@ -1269,13 +1739,14 @@ def kernel_line(kernel_cases: dict, serve: dict, schedule: dict) -> dict:
         source, replaces = KERNEL_SOURCES[name]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serve["launches"][name] + schedule["launches"][name],
-            "launches_by_path": {"serve": serve["launches"][name],
-                                 "schedule": schedule["launches"][name]},
+            "launches": sum(p["launches"][name] for p in paths.values()),
+            "launches_by_path": {path: p["launches"][name] for path, p in paths.items()},
             "launches_by_arch": {arch: a["launches"][name]
                                  for arch, a in serve["archs"].items()},
-            "graph_replay_launches": (serve["graph_replay_launches"][name]
-                                      + schedule["graph_replay_launches"][name]),
+            "graph_replay_launches": sum(p["graph_replay_launches"][name]
+                                         for p in paths.values()),
+            "graph_replay_launches_by_path": {path: p["graph_replay_launches"][name]
+                                              for path, p in paths.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1307,8 +1778,9 @@ def main(argv=None) -> int:
     phase_model_parity(args.seed)
     serve = phase_serve(args.seed)
     schedule = phase_schedule(args.seed)
+    fleet = phase_fleet(args.seed)
     phase_formats(args.seed)
-    emit(kernel_line(kernels, serve, schedule))
+    emit(kernel_line(kernels, serve, schedule, fleet))
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

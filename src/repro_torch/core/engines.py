@@ -8,15 +8,19 @@ the first prefill of a batch size) one decode step is captured into a CUDA
 graph whose static buffers hold the KV cache, which the graph updates in
 place (the counterpart of the JAX package's donated cache).  Prefill stays
 eager and writes its k/v straight into those buffers; every decode step
-replays the graph.  A failed capture raises; it never falls back to eager.
-On the CPU the same step functions run uncaptured.
+replays the graph.  A slot-pool caller (continuous batching, calibration)
+gets a cache of its own from ``decode_cache``, decoded by a graph captured
+on that cache's buffers, so two pools on one engine (two replicas of an
+endpoint) never share slots.  A failed capture raises; it never falls back
+to eager.  On the CPU the same step functions run uncaptured.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict
+import weakref
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -150,7 +154,23 @@ class _DecodeGraph:
     tokens: torch.Tensor          # (B,) int32 input
     logits: torch.Tensor          # (B, V) f32 output, overwritten by replay
     launches_per_replay: Dict[str, int]
+    capture_s: float = 0.0        # the eager step and the capture
     replays: int = 0
+
+    @property
+    def batch(self) -> int:
+        return self.tokens.shape[0]
+
+    @property
+    def cache_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
+
+
+class _SlotCache(dict):
+    """A slot cache handed out by ``CompiledEngine.decode_cache``: a dict of
+    its graph's buffers that carries the graph (``graph``) and can be weakly
+    referenced, so the graph returns to the engine's free list when the
+    caller drops the cache."""
 
 
 class CompiledEngine(Engine):
@@ -165,10 +185,15 @@ class CompiledEngine(Engine):
 
     def __init__(self, cfg: ModelConfig, params, max_seq: int = 256, device=None):
         super().__init__(cfg, params, max_seq, device)
-        self.graphs: Dict[int, _DecodeGraph] = {}
+        self.graphs: Dict[int, _DecodeGraph] = {}      # generate's, by batch
+        # slot-pool graphs: every one captured (in order), and those whose
+        # cache was dropped, free to hand out again (by batch)
+        self.slot_graphs: List[_DecodeGraph] = []
+        self._free: Dict[int, List[_DecodeGraph]] = {}
 
     def _capture(self, batch: int) -> _DecodeGraph:
         cfg, params = self.cfg, self.params
+        t0 = time.perf_counter()
         cache = transformer.init_cache(cfg, batch, self.max_seq, device=self.device)
         tokens = torch.zeros((batch,), dtype=torch.int32, device=self.device)
         with torch.no_grad():
@@ -186,7 +211,9 @@ class CompiledEngine(Engine):
                 cache["lengths"].copy_(new_cache["lengths"])
             after = ops.launch_counts()
         per_replay = {k: after[k] - before[k] for k in after}
-        return _DecodeGraph(graph, cache, tokens, logits, per_replay)
+        self._sync()
+        return _DecodeGraph(graph, cache, tokens, logits, per_replay,
+                            capture_s=time.perf_counter() - t0)
 
     def _graph(self, batch: int) -> _DecodeGraph:
         g = self.graphs.get(batch)
@@ -195,19 +222,44 @@ class CompiledEngine(Engine):
         return g
 
     def decode_cache(self, batch: int, max_seq: int) -> dict:
-        """On the card: the graph's own buffers for ``batch``, zeroed in
-        place (the graph decodes no other cache, and copying one in would
-        cost a whole-cache copy a step).  Their size is the engine's, so
-        another ``max_seq`` raises."""
+        """On the card: a cache no other caller and no ``generate`` shares,
+        zeroed, whose buffers are those of a decode graph captured for it
+        (copying a cache into a shared graph would cost a whole-cache copy a
+        step).  A graph whose cache was dropped is handed out again before a
+        new one is captured.  Their size is the engine's, so another
+        ``max_seq`` raises."""
         if self.device.type != "cuda":
             return super().decode_cache(batch, max_seq)
         if max_seq != self.max_seq:
             raise ValueError(f"SI2's decode cache holds max_seq {self.max_seq} "
                              f"entries a slot, not {max_seq}")
-        cache = self._graph(batch).cache
-        for leaf in cache.values():
+        free = self._free.setdefault(batch, [])
+        if free:
+            g = free.pop()
+        else:
+            g = self._capture(batch)
+            self.slot_graphs.append(g)
+        for leaf in g.cache.values():
             leaf.zero_()
+        cache = _SlotCache(g.cache)
+        cache.graph = g
+        weakref.finalize(cache, free.append, g)
         return cache
+
+    def graph_of(self, cache: dict) -> _DecodeGraph:
+        """The graph that decodes ``cache``: its slot graph if
+        ``decode_cache`` handed it out, else ``generate``'s graph whose
+        buffers it is; raises for any other cache."""
+        g = getattr(cache, "graph", None)
+        if g is not None:
+            return g
+        batch = cache["lengths"].shape[0]
+        g = self.graphs.get(batch)
+        if g is None or cache is not g.cache:
+            raise ValueError("SI2 decodes only the cache its own prefill wrote "
+                             f"(the graph's buffers for batch {batch}) or one "
+                             "that decode_cache handed out")
+        return g
 
     def _prefill(self, tokens):
         if self.device.type != "cuda":
@@ -221,14 +273,11 @@ class CompiledEngine(Engine):
         if self.device.type != "cuda":
             with torch.no_grad():
                 return transformer.decode_step(self.params, self.cfg, cache, tokens)
-        g = self._graph(tokens.shape[0])
-        if cache is not g.cache:
-            raise ValueError("SI2 decodes only the cache its own prefill wrote "
-                             f"(the graph's buffers for batch {tokens.shape[0]})")
+        g = self.graph_of(cache)
         g.tokens.copy_(tokens)
         g.graph.replay()
         g.replays += 1
-        return g.logits, g.cache
+        return g.logits, cache
 
     def warmup(self, batch: int, prompt_len: int) -> float:
         """Run one prefill and capture the decode step for ``batch``; returns

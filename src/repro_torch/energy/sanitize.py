@@ -76,8 +76,8 @@ def observation_guard(recorder, label: str = "monitor tick"):
     """R6 runtime proof: a pure observer may *read* the telemetry stream
     but never write it.
 
-    The green-SRE monitor (not ported yet) wraps every fleet
-    tick in this guard when ``REPRO_SANITIZE=1``: the recorder's stream
+    The green-SRE monitor (``repro_torch.serving.monitor``) wraps every
+    fleet tick in this guard when ``REPRO_SANITIZE=1``: the recorder's stream
     counters (events, capped drops, request records, deferral holds,
     sinks) and the span-attributed bucket ledgers are snapshotted before
     the observation and re-compared after it.  Any drift means the monitor

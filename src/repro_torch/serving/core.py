@@ -30,8 +30,8 @@ Two entry modes share one event loop:
   * **incremental mode** — :meth:`~SchedulerCore.begin`, then a router feeds
     arrivals one at a time via :meth:`~SchedulerCore.offer` and advances the
     replica with :meth:`~SchedulerCore.drain_until`; :meth:`~SchedulerCore.
-    finish` closes the run.  This is what the replica fleet (not ported
-    yet) uses to run N cores on one shared virtual timeline.
+    finish` closes the run.  This is what :class:`repro_torch.serving.fleet.
+    ReplicaFleet` uses to run N cores on one shared virtual timeline.
 """
 
 from __future__ import annotations
@@ -441,7 +441,7 @@ class SchedulerCore:
             self.meter.per_request_j.setdefault(rid, 0.0)
             self.meter.per_request_g.setdefault(rid, 0.0)
 
-    # -- disaggregated phase dispatches (prefill/decode pools) ----------------------
+    # -- disaggregated phase dispatches (repro_torch.serving.admission.disagg) ------
     def execute_prefill(self, batch: List[Request], start_s: float) -> None:
         """Prefill-pool dispatch: run only the prompt pass of ``batch``.
 

@@ -206,8 +206,10 @@ class ContinuousBatchPolicy(SchedulingPolicy):
 
     def reset(self, core: SchedulerCore) -> None:
         B = self.num_slots
-        # the engine's own slot cache: under SI2 on the card, the buffers
-        # its captured decode step reads and writes
+        # the engine's slot cache for this pool alone: under SI2 on the card,
+        # the buffers of a decode graph captured for it.  The last run's
+        # cache is dropped first, so SI2 hands its graph out again.
+        self.kv = None
         self.kv = core.engine.decode_cache(B, self.max_seq)
         self.cur_tok = torch.zeros((B,), dtype=torch.int32,
                                    device=core.engine.device)

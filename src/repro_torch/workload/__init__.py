@@ -1,11 +1,17 @@
-"""Workload shapes as first-class data: arrival generators.
+"""Workload shapes as first-class data: arrival generators + traffic
+calendars.
 
 ``repro_torch.workload.generators`` turns workload *shape* (steady Poisson,
 diurnal swell, flash crowds, recorded traces) into deterministic
-``Request`` streams.  Traffic calendars (rate forecasts for a predictive
-autoscaler) are not ported yet.
+``Request`` streams for the serving fleet; ``repro_torch.workload.calendar``
+turns the same shapes into rate forecasts the predictive autoscaler
+pre-warms against.
 """
 
+from repro_torch.workload.calendar import (  # noqa: F401
+    TrafficCalendar,
+    calendar_points,
+)
 from repro_torch.workload.generators import (  # noqa: F401
     WorkloadSpec,
     bursty,

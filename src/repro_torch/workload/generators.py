@@ -193,7 +193,7 @@ class WorkloadSpec:
     burst_rate_per_s: float = 0.0
     # trace replay
     arrivals: Tuple[float, ...] = ()
-    # client regions (the regions layer, not ported yet): requests cycle the named
+    # client regions (serving/regions): requests cycle the named
     # origins round-robin in arrival order, so one spec declares a
     # geo-mixed client population; () = region-less (never pays transit)
     origins: Tuple[str, ...] = ()

@@ -487,13 +487,13 @@ def test_si2_calibrate_and_continuous_batch_equal_si1(gen, arch):
     si2 = CompiledEngine(cfg, params, 64)
     cache = calibrate(si2, StepTimeCache(), batch_sizes=[1, 2], prompt_len=8, max_new=3,
                       vocab=cfg.vocab_size, num_slots=4, max_seq=64)
-    assert ("decode", 4) in cache.to_payload() and si2.graphs[4].replays >= 2
+    assert ("decode", 4) in cache.to_payload() and si2.slot_graphs[0].replays >= 2
     wl = lambda: synth_workload(7, 8, 5, cfg.vocab_size, rate_per_s=300, seed=4)  # noqa: E731
     want = _cb_tokens(EagerEngine(cfg, params, 64), wl(), 4, 64)
-    replays = si2.graphs[4].replays
+    replays = sum(g.replays for g in si2.slot_graphs)
     got = _cb_tokens(si2, wl(), 4, 64)
     assert len(got) == 7 and got == want
-    assert si2.graphs[4].replays > replays
+    assert sum(g.replays for g in si2.slot_graphs) > replays
 
 
 def test_si2_free_slot_past_max_seq_in_a_graph(gen):
@@ -512,7 +512,7 @@ def test_si2_free_slot_past_max_seq_in_a_graph(gen):
     got = _cb_tokens(si2, wl(), 2, 32)
     torch.cuda.synchronize()
     assert got == want and len(got[0]) == 20
-    assert int(si2.graphs[2].cache["lengths"][1]) > 32
+    assert int(si2.slot_graphs[0].cache["lengths"][1]) > 32
 
 
 def test_si2_decode_cache_is_the_graphs_and_sized_by_the_engine(gen):
@@ -520,10 +520,52 @@ def test_si2_decode_cache_is_the_graphs_and_sized_by_the_engine(gen):
     si2 = CompiledEngine(cfg, T.init_params(cfg, seed=0, device="cuda"), 64)
     si2.warmup(3, 8)
     cache = si2.decode_cache(3, 64)
-    assert cache is si2.graphs[3].cache
+    g = si2.graph_of(cache)
+    assert g is not si2.graphs[3] and all(cache[k] is g.cache[k] for k in g.cache)
+    assert cache["k"].data_ptr() != si2.graphs[3].cache["k"].data_ptr()
     assert all(not bool(leaf.any()) for leaf in cache.values())
+    del cache               # its graph is handed out again, not captured anew
+    again = si2.decode_cache(3, 64)
+    assert si2.graph_of(again) is g and len(si2.slot_graphs) == 1
     with pytest.raises(ValueError, match="max_seq"):
         si2.decode_cache(3, 128)
     with pytest.raises(ValueError, match="decodes only the cache"):
         si2.decode_batch(T.init_cache(cfg, 3, 64, device="cuda"),
                          torch.zeros(3, dtype=torch.int32, device="cuda"))
+
+
+def test_si2_two_continuous_pools_on_one_engine_keep_their_own_slots(gen):
+    """Two continuous-batching cores interleaved on one SI2 engine (two
+    replicas of one endpoint): each decodes a slot cache of its own, so
+    every request's tokens equal its tokens from one core alone."""
+    from repro_torch.serving.core import SchedulerCore
+    from repro_torch.serving.request import synth_workload
+    from repro_torch.serving.scheduler import ContinuousBatchPolicy
+
+    cfg = get_arch("minitron-4b-smoke")
+    si2 = CompiledEngine(cfg, T.init_params(cfg, seed=0, device="cuda"), 64)
+
+    def workload(k):
+        return synth_workload(6, 8, 6, cfg.vocab_size, rate_per_s=400, seed=k, rid0=100 * k)
+
+    alone = {}
+    for k in (1, 2):
+        alone.update(_cb_tokens(si2, workload(k), 4, 64))
+    cores = [SchedulerCore(si2, ContinuousBatchPolicy(num_slots=4, max_seq=64))
+             for _ in range(2)]
+    for core in cores:
+        core.begin()
+    for core, k in zip(cores, (1, 2)):
+        for req in workload(k):
+            core.offer(req)
+    for t in np.arange(0.0005, 0.1, 0.0005):
+        for core in cores:
+            core.drain_until(float(t))
+    got = {}
+    for core in cores:
+        core.drain_until()
+        got.update({r.rid: np.asarray(r.tokens).tolist() for r in core.finish().responses})
+    assert len(got) == 12 and got == alone
+    kv = [core.policy.kv for core in cores]
+    assert kv[0]["k"].data_ptr() != kv[1]["k"].data_ptr()
+    assert all(si2.graph_of(c).replays > 0 for c in kv)
