@@ -65,6 +65,21 @@ Phases, each printed as one JSON line:
                 replays the run's durations, billed at the measured draw,
                 traced and monitored (one fleet_run line per run, then one
                 fleet line)
+  api           the declarative spec API (ServingSpec -> ServingSession):
+                first minitron-4b-smoke, mixtral-8x7b-smoke and rwkv6-3b-smoke
+                in f32, a burst of 8 requests each through one spec on SI1,
+                then on SI2 (with_override) with minitron-4b-smoke from
+                rsm_int8 beside them: SI2's tokens equal SI1's, and K1-K5
+                each launch inside the SI2 session's run(); then full-width
+                minitron-4b (bf16, max_seq 1024, through the session's
+                registry on disk in rsm and rsm_int8): chat (rsm, 16 Poisson
+                requests at 6.67 req/s) and bulk (rsm_int8, 8 at 3.33)
+                behind round_robin, one SI2 replica each, run_declared with
+                the card's idle and calibration draw as the spec's power
+                envelope, read by the card's energy counter beside the
+                report's joules (api_run line; the green report and the
+                roofline's derived entry on stderr); then
+                python -m repro_torch.launch.serve at full width (api line)
   formats       rsm_int8 on disk -> load -> the same tokens as in memory;
                 an 8-layer model serves rsm_int8 behind the norm-gain fence
 Then the kernel summary line, the card's name and power limit, and last
@@ -1721,11 +1736,398 @@ def phase_fleet(seed: int, prompt_len: int = 512, max_new: int = 32) -> dict:
     return out
 
 
-def kernel_line(kernel_cases: dict, serve: dict, schedule: dict, fleet: dict) -> dict:
+# -- the api phase: the declarative spec API -------------------------------------------
+
+API_SMOKE_ARCHS = ("minitron-4b-smoke", "mixtral-8x7b-smoke", "rwkv6-3b-smoke")
+API_POLICY = dict(max_batch=8, batch_timeout_ms=20.0, max_seq=1024)
+
+
+def _api_endpoint(name: str, arch: str, fmt: str, si: str, **kw):
+    """A one-replica endpoint (no autoscaling) of dynamic batching whose
+    every dispatch executes (no step cache)."""
+    from repro_torch.serving.api import AutoscaleSpec, EndpointSpec
+
+    return EndpointSpec(name=name, arch=arch, model=arch, format=fmt, si=si, step_cache=False,
+                        autoscale=AutoscaleSpec(enabled=False, max_replicas=1), **kw)
+
+
+def _session_run(session, names) -> tuple:
+    """``session.run()`` with the launch counters set to 0 just before it and
+    read just after; returns (report, eager launches, launches the engines'
+    graph replays made, {name: {batch: replays}})."""
+    from repro_torch.kernels import ops
+
+    engines = {n: session.engine(n) for n in names}
+    replays0 = {n: _graph_replays(e) for n, e in engines.items()}
+    ops.reset_launch_counts()
+    report = session.run()
+    launches = ops.launch_counts()
+    graph_launches = dict.fromkeys(launches, 0)
+    by_batch = {}
+    for n, e in engines.items():
+        replayed, gl = _replayed_since(e, replays0[n], launches)
+        for k, v in gl.items():
+            graph_launches[k] += v
+        by_batch[n] = {g.batch: replayed[id(g)] for g in _engine_graphs(e) if replayed[id(g)]}
+    return report, launches, graph_launches, by_batch
+
+
+def _report_tokens(report) -> dict:
+    return {name: {r.rid: [int(t) for t in r.tokens] for r in ep.metrics.responses}
+            for name, ep in report.endpoints.items()}
+
+
+def _api_smoke_f32(seed: int) -> dict:
+    """minitron-4b-smoke (rsm), mixtral-8x7b-smoke and rwkv6-3b-smoke in f32
+    through ServingSession, each a burst of 8 requests at t = 0 (8-token
+    prompts, 6 new tokens), first on SI1, then the same spec on SI2 through
+    ``with_override`` plus minitron-4b-smoke from rsm_int8 (the spec API
+    rejects rsm_int8 on SI1; its SI2 tokens are held against an eager engine
+    on the weights the session loaded).  SI2's tokens must equal SI1's, and
+    K1-K5 must each launch inside the SI2 session's ``run()``."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engines import EagerEngine
+    from repro_torch.models import transformer
+    from repro_torch.serving.api import ServingSession, ServingSpec, with_override
+    from repro_torch.serving.request import Request
+
+    policy = dict(API_POLICY, max_seq=64)
+    params = {a: transformer.init_params(get_arch(a), seed, device="cuda")
+              for a in API_SMOKE_ARCHS}
+    spec_si1 = ServingSpec(endpoints=tuple(
+        _api_endpoint(a.split("-")[0], a, "rsm", "si1_no_runtime", **policy)
+        for a in API_SMOKE_ARCHS)).validate()
+    spec_si2 = with_override(spec_si1, "endpoints.*.si", "si2_runtime")
+    int8 = dataclasses.replace(spec_si2.endpoints[0], name="minitron_int8", format="rsm_int8")
+    spec_si2 = dataclasses.replace(spec_si2, endpoints=spec_si2.endpoints + (int8,)).validate()
+    rng = np.random.default_rng(seed)
+    prompts = {ep.name: rng.integers(0, get_arch(ep.arch).vocab_size, (8, 8)).astype(np.int32)
+               for ep in spec_si2.endpoints}
+    out = {"archs": list(API_SMOKE_ARCHS), "dtype": "float32", "requests_per_endpoint": 8}
+    tokens, sessions = {}, {}
+    for si, spec in (("SI1", spec_si1), ("SI2", spec_si2)):
+        session = ServingSession().deploy(spec, params=params)
+        for i, ep in enumerate(spec.endpoints):
+            # SI2 captures its graph of a batch of 8 here, outside run()
+            session.engine(ep.name).warmup(8, 8)
+            session.submit(ep.name, [Request(rid=100 * i + j, prompt=p, max_new_tokens=6)
+                                     for j, p in enumerate(prompts[ep.name])])
+        report, launches, graph_launches, by_batch = _session_run(
+            session, [ep.name for ep in spec.endpoints])
+        tokens[si] = _report_tokens(report)
+        sessions[si] = session
+        for name, got in tokens[si].items():
+            if len(got) != 8:
+                raise AssertionError(f"api f32 smoke {si}: {name} answered {len(got)} of 8")
+        out[si] = {"launches": launches, "graph_replay_launches": graph_launches,
+                   "graph_replays_by_batch": by_batch,
+                   "engines": {ep.name: session.engine(ep.name).name for ep in spec.endpoints}}
+    for name, want in tokens["SI1"].items():
+        if tokens["SI2"][name] != want:
+            raise AssertionError(f"api f32 smoke: {name}'s SI2 tokens differ from SI1's")
+    engine = sessions["SI2"].engine("minitron_int8")
+    eager = EagerEngine(engine.cfg, engine.params, engine.max_seq).generate(
+        prompts["minitron_int8"], 6).tokens
+    if tokens["SI2"]["minitron_int8"] != {100 * 3 + j: eager[j].tolist() for j in range(8)}:
+        raise AssertionError("api f32 smoke: minitron_int8's SI2 tokens differ from eager")
+    total = {k: out["SI2"]["launches"][k] + out["SI2"]["graph_replay_launches"][k]
+             for k in KERNEL_SOURCES}
+    if not all(total.values()):
+        raise AssertionError(f"api f32 smoke: a kernel never launched in run() ({total})")
+    out.update(tokens_si2_equal_si1=True, int8_tokens_equal_eager=True)
+    return out
+
+
+def _registry_bytes(params, fmt: str) -> int:
+    """Bytes ``save_rsm`` writes for ``params`` in ``fmt``: bf16 leaves as
+    f32, the quantizable ones in rsm_int8 as int8 plus f32 scales."""
+    from repro_torch.serving import formats
+
+    total = 0
+    for key, t in formats._flatten(params).items():
+        if fmt == "rsm_int8" and formats._quantizable(key, t):
+            total += t.numel() + 4 * t.numel() // t.shape[-2]
+        else:
+            total += 4 * t.numel()
+    return total
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+@contextlib.contextmanager
+def _registered(cfg):
+    """``cfg`` resolvable by name (``get_arch``) while open: a depth cut of a
+    registered arch, which the spec API looks up by its ``arch`` field."""
+    from repro_torch.configs import ARCHS
+
+    known = cfg.name in ARCHS
+    ARCHS.setdefault(cfg.name, cfg)
+    try:
+        yield cfg
+    finally:
+        if not known:
+            del ARCHS[cfg.name]
+
+
+def _api_depth(seed: int, disk_free: int) -> tuple:
+    """(minitron-4b at full width, the registry's bytes, why depth was cut
+    or None): all 32 layers unless the temp disk cannot hold both formats'
+    files (with 10 % to spare); then as many layers as it can, width kept."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+
+    cfg = get_arch("minitron-4b")
+    params = transformer.init_params(cfg, seed, device="cuda")
+    need = sum(_registry_bytes(params, f) for f in ("rsm", "rsm_int8"))
+    if need * 1.1 <= disk_free:
+        return cfg, params, need, None
+    per_layer = sum(_registry_bytes({"layers": params["layers"]}, f)
+                    for f in ("rsm", "rsm_int8")) / cfg.num_layers
+    fixed = need - per_layer * cfg.num_layers
+    n = int((disk_free / 1.1 - fixed) // per_layer)
+    if n < 1:
+        raise AssertionError(f"api phase: {disk_free} B of temp disk hold no layer of "
+                             f"{cfg.name} ({need} B for all {cfg.num_layers})")
+    cut = dataclasses.replace(cfg, name=f"{cfg.name}-{n}l", num_layers=n)
+    del params
+    params = transformer.init_params(cut, seed, device="cuda")
+    reason = (f"{n} of {cfg.num_layers} layers: the registry needs {need} B for all, the "
+              f"temp disk has {disk_free} B free")
+    return cut, params, sum(_registry_bytes(params, f) for f in ("rsm", "rsm_int8")), reason
+
+
+def _derived_entry(engine, batch: float, context: float, chip) -> dict:
+    """The roofline's J/token of one SI2 decode step of ``engine`` at mean
+    batch ``batch`` and mean context ``context``: FLOPs 2 x (parameters a
+    step multiplies) x B, bytes the weights a step reads plus the KV read."""
+    from repro_torch.energy.estimator import RooflineTerms, energy_per_token_j, step_power_w
+    from repro_torch.serving.formats import QTensor
+
+    def leaves(tree, key=""):
+        for k, v in tree.items():
+            yield from (leaves(v, f"{key}/{k}") if isinstance(v, dict) else [(f"{key}/{k}", v)])
+
+    n_params = weight_bytes = 0
+    for key, leaf in leaves(engine.params):
+        if key == "/embed":
+            continue                  # a step gathers B rows of it
+        t = leaf.wq if isinstance(leaf, QTensor) else leaf
+        n_params += t.numel()
+        weight_bytes += t.numel() * t.element_size()
+        if isinstance(leaf, QTensor):
+            weight_bytes += leaf.scales.numel() * leaf.scales.element_size()
+    cfg = engine.cfg
+    kv_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2 * context * batch
+    terms = RooflineTerms(flops=2.0 * n_params * batch, hbm_bytes=weight_bytes + kv_bytes,
+                          collective_bytes=0.0, chips=1, chip=chip)
+    return {"chip": chip.name, "batch": batch, "context": context, "flops": terms.flops,
+            "hbm_bytes": terms.hbm_bytes, "t_step_s": terms.t_step,
+            "bottleneck": terms.bottleneck, "power_w": step_power_w(terms),
+            "j_per_token": energy_per_token_j(terms, 1) / batch}
+
+
+def _api_full_width(seed: int, card, prompt_len: int = 512, max_new: int = 32) -> dict:
+    """Full-width minitron-4b (bf16, max_seq 1024) through one ServingSpec:
+    chat (rsm, interactive, 16 Poisson requests at 6.67 req/s) and bulk
+    (rsm_int8, 8 at 3.33 req/s) behind round_robin, one SI2 replica each on
+    dynamic batching, served by ``run_declared``.  The spec's power envelope
+    is the card's: idle from a 2-s NVML reading, active the mean draw over
+    ``calibrate`` at B = 1..8, both outside the run.  The run is read by the
+    card's energy counter beside the report's metered joules."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.core.add import (Deployment, ModelFormat, RequestProcessing,
+                                      ServingInfrastructure)
+    from repro_torch.energy.hw import H100_SXM
+    from repro_torch.energy.report import build_green_report
+    from repro_torch.serving.api import ServingSession, ServingSpec, SLOClass, with_override
+    from repro_torch.workload import WorkloadSpec
+
+    disk_free = shutil.disk_usage(tempfile.gettempdir()).free
+    cfg, params, need, depth_cut = _api_depth(seed, disk_free)
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "depth_cut": depth_cut, "temp_disk_free": disk_free,
+           "registry_bytes_expected": need, "prompt_len": prompt_len, "max_new": max_new,
+           "policy": API_POLICY, "router": "round_robin"}
+    wl = dict(kind="poisson", prompt_len=prompt_len, max_new_tokens=max_new)
+    with _registered(cfg):
+        spec = ServingSpec(endpoints=(
+            _api_endpoint("chat", cfg.name, "rsm", "si2_runtime", ttft_slo_ms=500.0,
+                          slo_classes={"interactive": SLOClass(slo_ms=500.0,
+                                                               priority="interactive")},
+                          workload=WorkloadSpec(n=16, rate_per_s=6.67, seed=seed, slo_ms=500.0,
+                                                priority="interactive", **wl), **API_POLICY),
+            _api_endpoint("bulk", cfg.name, "rsm_int8", "si2_runtime",
+                          workload=WorkloadSpec(n=8, rate_per_s=3.33, seed=seed + 1, rid0=10**6,
+                                                **wl), **API_POLICY),
+        ), router="round_robin").validate()
+        session = ServingSession()
+        t0 = time.perf_counter()
+        session.deploy(spec, params={cfg.name: params})
+        torch.cuda.synchronize()
+        out["deploy_s"] = time.perf_counter() - t0
+        out["registry_bytes"] = _dir_bytes(session._registry())
+        _, idle = card.measure(lambda: time.sleep(2.0))
+        # calibration captures each engine's graphs of B = 1..8: the run
+        # itself captures nothing (dynamic batching decodes generate's graphs)
+        _, cal = card.measure(lambda: [session.calibrate(
+            n, batch_sizes=range(1, API_POLICY["max_batch"] + 1), prompt_len=prompt_len,
+            max_new=max_new) for n in ("chat", "bulk")])
+        spec = with_override(with_override(spec, "active_power_w", cal["w"]),
+                             "idle_power_w", idle["w"])
+        session.deploy(spec, params={cfg.name: params})
+        for ep in spec.endpoints:
+            session.submit(ep.name, session.declared_workloads()[ep.name])
+        engines = [session.engine(n) for n in ("chat", "bulk")]
+        graphs0 = sum(len(_engine_graphs(e)) for e in engines)
+        torch.cuda.reset_peak_memory_stats()
+        (report, launches, graph_launches, by_batch), card_e = card.measure(
+            lambda: _session_run(session, ("chat", "bulk")))
+        peak = torch.cuda.max_memory_allocated()
+        # run() adds the endpoints to its fleet inside the energy window; on
+        # dynamic batching that captures no graph (calibrate did, outside)
+        captured = sum(len(_engine_graphs(e)) for e in engines) - graphs0
+        if captured:
+            raise AssertionError(f"api run: {captured} graphs captured inside the run")
+        # one replica an endpoint: a dispatch is the batch of responses that
+        # started together, and each runs one eager prefill
+        dispatches = {n: len({r.start_s for r in ep.metrics.responses})
+                      for n, ep in report.endpoints.items()}
+        per_prefill = _launches_per_pass(cfg, session.engine("bulk").params)[0]
+        want = {"flash_attention": cfg.num_layers * sum(dispatches.values()),
+                "int8_matmul": per_prefill["int8_matmul"] * dispatches["bulk"]}
+        for k, n in want.items():
+            if launches[k] != n:
+                raise AssertionError(f"api run: {k} launched {launches[k]} times, {n} expected "
+                                     f"from the dispatches {dispatches}")
+        for k in ("flash_attention", "decode_attention", "int8_matmul"):
+            if launches[k] + graph_launches[k] == 0:
+                raise AssertionError(f"api run: {k} was never launched ({launches}, "
+                                     f"replays {graph_launches})")
+        n_req = {n: len(ep.metrics.responses) for n, ep in report.endpoints.items()}
+        if n_req != {"chat": 16, "bulk": 8}:
+            raise AssertionError(f"api run: answered {n_req} of chat 16, bulk 8")
+        fleet = report.fleet
+        n_tok = fleet.total_tokens
+        endpoints = {}
+        for n, ep in report.endpoints.items():
+            m = ep.metrics
+            batch = n_req[n] / dispatches[n]
+            derived = _derived_entry(session.engine(n), batch, prompt_len + max_new / 2,
+                                     H100_SXM)
+            endpoints[n] = {
+                "format": ep.decisions["format"], "requests": n_req[n], "tokens": m.total_tokens,
+                "ttft_p50_s": m.ttft_percentile(50), "ttft_p95_s": m.ttft_percentile(95),
+                "latency_p50_s": m.latency_percentile(50),
+                "latency_p95_s": m.latency_percentile(95), "tokens_per_s": m.throughput_tok_s,
+                "dispatches": dispatches[n], "mean_batch": batch,
+                "graph_replays_by_batch": by_batch[n], "j_per_token": ep.j_per_token,
+                "j_active": ep.j_active, "j_idle": ep.j_idle,
+                "j_container_overhead": ep.j_container_overhead, "derived": derived}
+            dep = Deployment(arch=cfg.name, si=ServingInfrastructure.SI2_RUNTIME_ENGINE,
+                             model_format=ModelFormat(ep.decisions["format"]),
+                             request_processing=RequestProcessing.DYNAMIC_BATCH,
+                             max_batch=API_POLICY["max_batch"], max_seq=API_POLICY["max_seq"])
+            print(f"[green report {n}]\n" + build_green_report(dep, m).table(), file=sys.stderr)
+            print(f"[derived {n}] " + json.dumps(derived), file=sys.stderr, flush=True)
+        line = {
+            "phase": "api_run", **out, "endpoints": endpoints, "requests": fleet.n_requests,
+            "tokens": n_tok, "virtual_makespan_s": max(r.done_s for r in fleet.metrics.responses),
+            "wall_s": card_e["s"], "energy_method": card.method, "card_j": card_e["j"],
+            "card_mean_w": card_e["w"], "card_sampled_j": card_e["sampled_j"],
+            "card_j_per_token": card_e["j"] / n_tok, "idle_w": idle["w"], "idle": idle,
+            "calibrate": cal, "spec_active_power_w": spec.active_power_w,
+            "spec_idle_power_w": spec.idle_power_w, "j_per_token": fleet.j_per_token,
+            "j_active": fleet.j_active, "j_idle": fleet.j_idle,
+            "j_container_overhead": fleet.j_container_overhead,
+            "meter_active_over_card": fleet.j_active / card_e["j"],
+            "replica_seconds": fleet.replica_seconds,
+            "launches": launches, "graph_replay_launches": graph_launches,
+            "graphs_captured_in_run": captured, "max_memory_allocated": peak, "gpu": smi(),
+        }
+        emit(line)
+        del session, report, params, engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    return line
+
+
+def _api_cli(seed: int) -> dict:
+    """``python -m repro_torch.launch.serve`` at full width on the card: it
+    must exit 0 and print its spec JSON, summary and green report."""
+    import shutil
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = ["--arch", "minitron-4b", "--format", "rsm_int8", "--si", "si2_runtime",
+            "--requests", "8", "--seed", str(seed)]
+    disk_free = shutil.disk_usage(tempfile.gettempdir()).free
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *argv],
+                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=900)
+    seconds = time.perf_counter() - t0
+    print(f"[cli] python -m repro_torch.launch.serve {' '.join(argv)}\n{done.stdout}"
+          f"{done.stderr[-4000:]}", file=sys.stderr, flush=True)
+    lines = done.stdout.splitlines()
+    if done.returncode != 0:
+        raise AssertionError(f"api cli exited {done.returncode}: {done.stderr[-2000:]}")
+    start = lines.index("{")
+    spec = json.loads("\n".join(lines[start:lines.index("}", start) + 1]))
+    summary = next(ln for ln in lines if ln.startswith("{'n_requests'"))
+    if "'n_requests': 8" not in summary or not any(
+            ln.startswith("# quality report:") for ln in lines):
+        raise AssertionError(f"api cli: no summary of 8 requests or no green report: {summary}")
+    return {"argv": argv, "rc": done.returncode, "seconds": seconds,
+            "temp_disk_free": disk_free, "spec_format": spec["endpoints"][0]["format"],
+            "summary": summary, "decision_line": lines[0]}
+
+
+def phase_api(seed: int) -> dict:
+    """The declarative spec API on the card (see the module docstring)."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "api", "smoke_f32": _api_smoke_f32(seed)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = CardEnergy()
+    try:
+        run = _api_full_width(seed, card)
+    finally:
+        card.close()
+    out["cli"] = _api_cli(seed)
+    # the phase's launches are its sessions' run() windows: the f32 smoke's
+    # SI1 and SI2 runs and the full-width run
+    out["launches"] = {k: out["smoke_f32"]["SI1"]["launches"][k]
+                       + out["smoke_f32"]["SI2"]["launches"][k] + run["launches"][k]
+                       for k in KERNEL_SOURCES}
+    out["graph_replay_launches"] = {
+        k: out["smoke_f32"]["SI2"]["graph_replay_launches"][k]
+        + run["graph_replay_launches"][k] for k in KERNEL_SOURCES}
+    out["run"] = {k: run[k] for k in ("layers", "depth_cut", "card_j_per_token", "j_per_token",
+                                      "deploy_s", "registry_bytes", "tokens")}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def kernel_line(kernel_cases: dict, serve: dict, schedule: dict, fleet: dict,
+                api: dict) -> dict:
     """One entry per kernel, its numbers at one main-path shape (in bf16; K5
     in f32, as the model feeds it); every timed case under timed_cases.
-    ``launches`` sums the serve, schedule and fleet paths' counts (eager)."""
-    paths = {"serve": serve, "schedule": schedule, "fleet": fleet}
+    ``launches`` sums the serve, schedule, fleet and api paths' counts (eager)."""
+    paths = {"serve": serve, "schedule": schedule, "fleet": fleet, "api": api}
     main_shape = {"flash_attention": [4, 24, 8, 512, 128],
                   "decode_attention": [4, 8, 3, 1024, 128],
                   "int8_matmul": [4, 3072, 9216],
@@ -1779,8 +2181,9 @@ def main(argv=None) -> int:
     serve = phase_serve(args.seed)
     schedule = phase_schedule(args.seed)
     fleet = phase_fleet(args.seed)
+    api = phase_api(args.seed)
     phase_formats(args.seed)
-    emit(kernel_line(kernels, serve, schedule, fleet))
+    emit(kernel_line(kernels, serve, schedule, fleet, api))
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

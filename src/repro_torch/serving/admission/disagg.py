@@ -19,7 +19,7 @@ run can show both the regime where disaggregation wins J/token and the
 regime where the handoff eats the gain.
 
 :class:`DisaggSpec` is the declarative form (its JSON lives with the spec
-API, not ported yet); :class:`DisaggRuntime` is what the fleet executes, with the phase-batching
+API, ``repro_torch.serving.api``); :class:`DisaggRuntime` is what the fleet executes, with the phase-batching
 policy factories injected by the layer that owns the policy vocabulary
 (``repro_torch.serving.scheduler``).
 """

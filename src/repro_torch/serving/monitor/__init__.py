@@ -20,7 +20,7 @@ on —
     dashboard (stdlib-only).
 
 Everything rides :class:`~repro_torch.serving.monitor.spec.MonitorSpec`
-(the spec API that carries it is not ported yet) and is provably
+(a field of ``repro_torch.serving.api.ServingSpec``) and is provably
 observer-pure: monitored runs are bit-identical to
 unmonitored ones in joules, grams and latencies — invariant R6, enforced
 at every tick by the ``REPRO_SANITIZE=1`` sanitizer.

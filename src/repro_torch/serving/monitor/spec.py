@@ -1,7 +1,7 @@
 """Declarative monitor config: the green-SRE layer as one sweepable field.
 
-In the JAX package ``MonitorSpec`` rides on ``ServingSpec`` like every
-other design decision (the spec API is not ported yet).  The monitor
+``MonitorSpec`` rides on ``repro_torch.serving.api.ServingSpec`` like
+every other design decision.  The monitor
 consumes the telemetry stream, so ``monitor.enabled`` requires
 ``telemetry.enabled``.
 """

@@ -16,7 +16,7 @@ client sees tokens, both billed through the meter's existing ``xfer`` bucket
 at the link power (the same contract as disaggregation's KV handoffs).
 
 :class:`RegionSpec` is the declarative form (its JSON lives with the spec
-API, not ported yet); :class:`RegionTopology` is what the fleet executes.
+API, ``repro_torch.serving.api``); :class:`RegionTopology` is what the fleet executes.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ end-of-run aggregates came out — nobody could see *where inside a request's
 lifetime* the joules, grams and milliseconds went.  This package adds:
 
   * :class:`~repro_torch.serving.telemetry.spec.TelemetrySpec` — the declarative
-    switch (the spec API that carries it is not ported yet);
+    switch, a field of ``repro_torch.serving.api.ServingSpec``;
   * :class:`~repro_torch.serving.telemetry.recorder.TraceRecorder` — lifecycle
     spans per request, per-replica energy-billing spans observed straight
     off the :class:`~repro_torch.energy.meter.EnergyMeter`, fleet instants

@@ -1,7 +1,7 @@
 """Declarative telemetry config: one sweepable switch for the trace layer.
 
-In the JAX package ``TelemetrySpec`` rides on ``ServingSpec`` like every
-other design decision (the spec API is not ported yet).  ``enabled`` is a
+``TelemetrySpec`` rides on ``repro_torch.serving.api.ServingSpec`` like
+every other design decision.  ``enabled`` is a
 legitimate grid axis: the observer-purity tests flip it and assert the
 joules don't move.  Disabled is the default and costs one attribute check
 per billing event.

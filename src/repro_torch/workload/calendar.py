@@ -8,8 +8,8 @@ complement: a piecewise-constant ``t -> expected requests/s`` profile
 autoscaler consults *ahead* of its cold-start horizon, pre-warming replicas
 so they are ready when the predicted ramp arrives instead of after it.
 
-The JAX package's ``AutoscaleSpec.calendar`` is the declarative form (a
-tuple of ``(t_s, rate_per_s)`` breakpoints; the spec API is not ported yet);
+``repro_torch.serving.api.AutoscaleSpec.calendar`` is the declarative form
+(a tuple of ``(t_s, rate_per_s)`` breakpoints);
 :meth:`TrafficCalendar.from_requests` builds one empirically from any
 recorded workload.
 """

@@ -569,3 +569,35 @@ def test_si2_two_continuous_pools_on_one_engine_keep_their_own_slots(gen):
     kv = [core.policy.kv for core in cores]
     assert kv[0]["k"].data_ptr() != kv[1]["k"].data_ptr()
     assert all(si2.graph_of(c).replays > 0 for c in kv)
+
+
+def test_spec_session_si2_on_the_card_gives_eager_tokens(gen, tmp_path):
+    """One ServingSession on the card: minitron-4b-smoke served from
+    rsm_int8 on SI2, a burst of 4 requests in one dispatch.  Its tokens are
+    those an eager (SI1) engine gives on the same loaded weights (the spec
+    API rejects rsm_int8 on SI1), and K3 launches inside ``run()``."""
+    from repro_torch.serving.api import (AutoscaleSpec, EndpointSpec, ServingSession,
+                                         ServingSpec)
+    from repro_torch.serving.request import synth_workload
+
+    cfg = get_arch("minitron-4b-smoke")
+    spec = ServingSpec(endpoints=(EndpointSpec(
+        name="m", arch=cfg.name, format="rsm_int8", si="si2_runtime", max_seq=64,
+        max_batch=4, step_cache=False, autoscale=AutoscaleSpec(enabled=False,
+                                                               max_replicas=1)),))
+    session = ServingSession(registry_root=str(tmp_path))
+    assert session.device.type == "cuda"
+    session.deploy(spec, params={"m": T.init_params(cfg, seed=0, device="cuda")})
+    engine = session.engine("m")
+    assert isinstance(engine, CompiledEngine) and engine.device.type == "cuda"
+    engine.warmup(4, 8)
+    wl = synth_workload(4, 8, 6, cfg.vocab_size, rate_per_s=1e6, seed=2)
+    prompts = np.stack([r.prompt for r in wl])
+    n = ops.launch_counts()["int8_matmul"]
+    session.submit("m", wl)
+    report = session.run()
+    assert ops.launch_counts()["int8_matmul"] > n
+    got = {r.rid: np.asarray(r.tokens).tolist() for r in report.endpoints["m"].metrics.responses}
+    want = EagerEngine(cfg, engine.params, 64).generate(prompts, 6).tokens
+    assert got == {r.rid: want[i].tolist() for i, r in enumerate(wl)}
+    assert engine.graphs[4].replays >= 5

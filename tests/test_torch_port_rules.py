@@ -68,6 +68,18 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     formats.save_rsm(params, str(tmp_path / "rsm"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         formats.load_rsm(params, str(tmp_path / "rsm"))
+    # the spec API, its adapters and the launcher
+    from repro_torch.core.add import Deployment
+    from repro_torch.launch import serve
+    from repro_torch.serving.api import ServingSession
+    from repro_torch.serving.cloud import CloudService
+    from repro_torch.serving.server import ServingServer
+
+    for make in (ServingSession, lambda: CloudService(str(tmp_path / "reg")),
+                 lambda: ServingServer(Deployment(arch=cfg.name)),
+                 lambda: serve.main(["--arch", cfg.name, "--requests", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
