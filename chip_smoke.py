@@ -7,8 +7,11 @@ Phases, each printed as one JSON line:
   build         nvcc builds every kernel of csrc/ for sm_90a
   kernels       each kernel against its plain PyTorch version on the card,
                 at the main paths' shapes (minitron-4b, mixtral-8x7b,
-                arctic-480b's moe decode, rwkv6-3b) and the JAX package's
-                sweep shapes, with its time, bound and the time of one
+                arctic-480b's moe decode, rwkv6-3b; zamba2-2.7b's head dim
+                80 for K1 and K2; whisper-small's causal 1500-frame encoder
+                and its non-causal cross attention (64 queries over 1500
+                entries) for K1, and K2 over its 1500-entry cross cache) and
+                the JAX package's sweep shapes, with its time, bound and the time of one
                 PyTorch library call computing the same function where there
                 is one; K1, K3 and K4 print the path their planner took (mma
                 / wgmma / wmma / stream / fma), K2 its cache splits, K4 its D
@@ -20,14 +23,18 @@ Phases, each printed as one JSON line:
                 (graph_ms, library_graph_ms), with both factors; K3 at (4,
                 3072, 9216) adds torch.profiler's device time per kernel,
                 and the phase the timing floor
-  model_parity  minitron-4b, mixtral-8x7b, arctic-480b and rwkv6-3b -smoke in
-                f32: prefill + 3 decode steps on the card (kernels) against
+  model_parity  minitron-4b, mixtral-8x7b, arctic-480b, rwkv6-3b, zamba2-2.7b
+                and whisper-small (frames from --seed) -smoke in f32:
+                prefill + 3 decode steps on the card (kernels) against
                 the CPU (plain versions), rsm and rsm_int8; and minitron-4b-
                 smoke in bf16 rsm_int8, the model-level check of K1's and K3's
                 tensor-core and stream paths
   serve         full width, random weights from --seed: minitron-4b (32
                 layers; rsm and rsm_int8), mixtral-8x7b (24 of its 32 layers:
-                32 do not fit one 80 GB card) and rwkv6-3b (32 layers), bf16,
+                32 do not fit one 80 GB card), rwkv6-3b (32 layers),
+                zamba2-2.7b (54 Mamba2 layers and 9 shared-block calls; rsm
+                and rsm_int8) and whisper-small (12 + 12 layers, 64-token
+                prompts, 64 new tokens, max_seq 448), bf16,
                 each serving 8 requests through the binary codec with SI1
                 (eager) and SI2 (CUDA graphs); the launch counters, reset
                 before each arch, show the kernels on each path; then one
@@ -66,8 +73,9 @@ Phases, each printed as one JSON line:
                 traced and monitored (one fleet_run line per run, then one
                 fleet line)
   api           the declarative spec API (ServingSpec -> ServingSession):
-                first minitron-4b-smoke, mixtral-8x7b-smoke and rwkv6-3b-smoke
-                in f32, a burst of 8 requests each through one spec on SI1,
+                first minitron-4b-smoke, mixtral-8x7b-smoke, rwkv6-3b-smoke,
+                zamba2-2.7b-smoke and whisper-small-smoke in f32, a burst of
+                8 requests each through one spec on SI1,
                 then on SI2 (with_override) with minitron-4b-smoke from
                 rsm_int8 beside them: SI2's tokens equal SI1's, and K1-K5
                 each launch inside the SI2 session's run(); then full-width
@@ -121,13 +129,18 @@ KERNEL_SOURCES = {
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:56"),
 }
-# the serve phase's archs: (name, layers served or None for all, formats)
+# the serve phase's archs: (name, layers served or None for all, formats,
+# what differs from phase_serve's defaults)
 SERVE_ARCHS = (
-    ("minitron-4b", None, ("rsm", "rsm_int8")),
+    ("minitron-4b", None, ("rsm", "rsm_int8"), {}),
     # 32 layers hold 46.7 B parameters, 93.4 GB in bf16: more than one 80 GB
     # card; 24 layers hold 35.1 B, 70.2 GB
-    ("mixtral-8x7b", 24, ("rsm",)),
-    ("rwkv6-3b", None, ("rsm",)),
+    ("mixtral-8x7b", 24, ("rsm",), {}),
+    ("rwkv6-3b", None, ("rsm",), {}),
+    ("zamba2-2.7b", None, ("rsm", "rsm_int8"), {}),
+    # a transcription decoder sees short prompts; 448 is whisper-small's
+    # published decoder context (n_text_ctx, arXiv:2212.04356)
+    ("whisper-small", None, ("rsm",), dict(prompt_len=64, max_new=64, max_seq=448)),
 )
 
 
@@ -337,33 +350,42 @@ def phase_kernels(seed: int) -> dict:
     def randn(*shape, dtype):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    # K1: prefill attention, q/k/v in the model's (B, S, heads, dh) layout
+    # K1: prefill attention, q/k/v in the model's (B, S, heads, dh) layout;
+    # (B, H, K, Sq, T, dh, causal, window, timed)
     cases = []
-    # minitron-4b prefill, mixtral-8x7b prefill (native window 4096), sweep shapes
-    for (B, H, K, S, dh, window) in [(4, 24, 8, 512, 128, None),
-                                     (4, 32, 8, 512, 128, 4096), (2, 6, 2, 96, 32, 17),
-                                     (1, 8, 8, 128, 64, None)]:
+    for (B, H, K, S, T, dh, causal, window, is_timed) in [
+            (4, 24, 8, 512, 512, 128, True, None, True),      # minitron-4b prefill
+            (4, 32, 8, 512, 512, 128, True, 4096, True),      # mixtral-8x7b (window 4096)
+            (2, 6, 2, 96, 96, 32, True, 17, False),           # sweep shapes
+            (1, 8, 8, 128, 128, 64, True, None, False),
+            (4, 32, 32, 512, 512, 80, True, 4096, True),      # zamba2-2.7b shared block
+            (4, 12, 12, 1500, 1500, 64, True, None, True),    # whisper-small encoder
+            (4, 12, 12, 64, 1500, 64, False, None, True)]:    # whisper-small cross
         for dtype in (torch.bfloat16, torch.float32):
             qm = randn(B, S, H, dh, dtype=dtype)
-            km = randn(B, S, K, dh, dtype=dtype)
-            vm = randn(B, S, K, dh, dtype=dtype)
+            km = randn(B, T, K, dh, dtype=dtype)
+            vm = randn(B, T, K, dh, dtype=dtype)
             q, k, v = qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2)
-            got = ops.flash_attention(q, k, v, causal=True, window=window)
-            want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
-            err = check_close(f"flash_attention {B,H,K,S,dh,window} {dtype}", got, want,
-                              *_tol(dtype))
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+            err = check_close(f"flash_attention {B,H,K,S,T,dh,causal,window} {dtype}", got,
+                              want, *_tol(dtype))
             case = {"shape": [B, H, K, S, dh], "window": window,
                     "dtype": str(dtype)[6:], "path": k1.plan_call(q, k, v),
                     "max_abs_err": err}
-            if S == 512:
-                # minitron's and mixtral's prefill; mixtral's window (4096)
-                # exceeds S, so causal SDPA computes the same function
+            if (T, causal) != (S, True):
+                case.update(kv_len=T, causal=causal)
+            if is_timed:
+                # every window here exceeds S, so SDPA (causal or not) computes
+                # the same function
                 es = qm.element_size()
-                nbytes = (2 * B * S * H * dh + 2 * B * S * K * dh) * es
-                flops = 4 * B * H * dh * S * (S + 1) / 2
-                timed(case, lambda: ops.flash_attention(q, k, v, causal=True, window=window),
-                      lambda: ref.flash_attention_ref(q, k, v, window=window),
-                      lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                nbytes = (2 * B * S * H * dh + 2 * B * T * K * dh) * es
+                flops = (4 * B * H * dh * S * (S + 1) / 2 if causal
+                         else 4 * B * H * dh * S * T)
+                timed(case, lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                        window=window),
+                      lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window),
+                      lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                              enable_gqa=True),
                       nbytes, flops)
             emit_case("flash_attention", case)
@@ -374,12 +396,16 @@ def phase_kernels(seed: int) -> dict:
     cases = []
     # minitron-4b decode, mixtral-8x7b decode (native window 4096), sweep shapes;
     # then minitron-4b at the serve phase's own lengths (512-token prompts,
-    # 32 new tokens: 513..544 entries)
+    # 32 new tokens: 513..544 entries); zamba2-2.7b's shared block (dh 80, G 1,
+    # window 4096) at the standard and the serve's lengths; whisper-small's
+    # cross attention over its 1500 encoder entries
     for (B, K, G, S, dh, window, lens) in [
             (4, 8, 3, 1024, 128, None, None), (4, 8, 3, 1024, 128, 128, None),
             (4, 8, 4, 1024, 128, 4096, None),
             (3, 4, 1, 96, 64, None, None), (2, 2, 4, 128, 32, None, None),
-            (4, 8, 3, 1024, 128, None, [513, 524, 535, 544])]:
+            (4, 8, 3, 1024, 128, None, [513, 524, 535, 544]),
+            (4, 32, 1, 1024, 80, 4096, None), (4, 32, 1, 1024, 80, 4096, [513, 524, 535, 544]),
+            (4, 12, 1, 1500, 64, None, [1500] * 4)]:
         for dtype in (torch.bfloat16, torch.float32):
             q = randn(B, K, G, dh, dtype=dtype)
             kc = randn(B, S, K, dh, dtype=dtype).transpose(1, 2)
@@ -393,7 +419,9 @@ def phase_kernels(seed: int) -> dict:
             case = {"shape": [B, K, G, S, dh], "window": window,
                     "lengths": lengths.tolist(), "dtype": str(dtype)[6:],
                     "splits": k2.plan(B, K, S, sms).splits, "max_abs_err": err}
-            if (S, window) == (1024, None):
+            if (S, window) == (1024, None) or dh == 80 or S == 1500:
+                # zamba2's window of 4096 exceeds every length: the masked
+                # SDPA computes the same function
                 es = q.element_size()
                 n_read = int(lengths.sum())
                 nbytes = (2 * q.numel() + 2 * n_read * K * dh) * es + 4 * B
@@ -401,8 +429,8 @@ def phase_kernels(seed: int) -> dict:
                 mask = (torch.arange(S, device="cuda")[None, :] < lengths[:, None])
                 mask = mask[:, None, None, :]
                 qh = q.reshape(B, K * G, 1, dh)
-                timed(case, lambda: ops.decode_attention(q, kc, vc, lengths),
-                      lambda: ref.decode_attention_ref(q, kc, vc, lengths),
+                timed(case, lambda: ops.decode_attention(q, kc, vc, lengths, window=window),
+                      lambda: ref.decode_attention_ref(q, kc, vc, lengths, window=window),
                       lambda: F.scaled_dot_product_attention(qh, kc, vc, attn_mask=mask,
                                                              enable_gqa=True),
                       nbytes, flops)
@@ -595,16 +623,20 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def _parity_run(cfg, p_cpu, prompt, max_seq: int, what: str, atol: float = 1e-3) -> float:
-    """Prefill + 3 decode steps on the card and on the CPU; max |logit diff|."""
+def _parity_run(cfg, p_cpu, prompt, max_seq: int, what: str, atol: float = 1e-3,
+                frames=None) -> float:
+    """Prefill + 3 decode steps on the card and on the CPU; max |logit diff|.
+    ``frames``: the audio encoder's input, (B, encoder_seq, D)."""
     import torch
 
     from repro_torch.models import transformer
 
     p_gpu = _tree_to(p_cpu, "cuda")
+    extra = {} if frames is None else {"frames": frames}
     with torch.no_grad():
-        l_cpu, c_cpu = transformer.prefill(p_cpu, cfg, {"tokens": prompt}, max_seq)
-        l_gpu, c_gpu = transformer.prefill(p_gpu, cfg, {"tokens": prompt.cuda()}, max_seq)
+        l_cpu, c_cpu = transformer.prefill(p_cpu, cfg, {"tokens": prompt, **extra}, max_seq)
+        l_gpu, c_gpu = transformer.prefill(p_gpu, cfg, {"tokens": prompt.cuda(),
+                                                        **_tree_to(extra, "cuda")}, max_seq)
         errs = [check_close(f"{what} prefill", l_gpu.cpu(), l_cpu, atol, 0.0)]
         tok = torch.argmax(l_cpu, -1).to(torch.int32)
         for step in range(3):
@@ -627,14 +659,18 @@ def phase_model_parity(seed: int) -> dict:
     out = {"phase": "model_parity", "dtype": "float32", "atol": 1e-3, "archs": {}}
     rng = np.random.default_rng(seed)
     for arch in ("minitron-4b-smoke", "mixtral-8x7b-smoke", "arctic-480b-smoke",
-                 "rwkv6-3b-smoke"):
+                 "rwkv6-3b-smoke", "zamba2-2.7b-smoke", "whisper-small-smoke"):
         cfg = get_arch(arch)
         cpu_params = transformer.init_params(cfg, seed, device="cpu")
         prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16), dtype=np.int32))
+        frames = (torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+            if cfg.family == "audio" else None)
         res = {}
         for fmt in ("rsm", "rsm_int8"):
             p_cpu = quantize_params(cpu_params) if fmt == "rsm_int8" else cpu_params
-            res[fmt] = {"max_abs_err": _parity_run(cfg, p_cpu, prompt, 32, f"{arch} {fmt}")}
+            res[fmt] = {"max_abs_err": _parity_run(cfg, p_cpu, prompt, 32, f"{arch} {fmt}",
+                                                   frames=frames)}
             if arch == "mixtral-8x7b-smoke":
                 # 96 tokens in a 128-entry cache: its native window of 32 takes the
                 # decode path's window-gather branch through K2
@@ -718,6 +754,24 @@ def _qtensor_leaves(tree) -> int:
 def _launches_per_pass(cfg, tree) -> tuple:
     """({kernel: launches per prefill}, {kernel: launches per decode step})."""
     L = cfg.num_layers
+    zero = dict.fromkeys(KERNEL_SOURCES, 0)
+    if cfg.family == "hybrid":
+        # the shared block runs once per group of attn_every Mamba2 layers;
+        # the Mamba2 leaves are multiplied with @, never through K3
+        G = L // cfg.attn_every
+        int8 = G * _qtensor_leaves(tree["shared"])
+        return (dict(zero, flash_attention=G, int8_matmul=int8),
+                dict(zero, decode_attention=G, int8_matmul=int8))
+    if cfg.family == "audio":
+        # prefill: encoder self, decoder self and cross attention (K1); a
+        # step: decoder self and cross attention (K2), and the cross
+        # attention's q and o only (its k/v are cached at prefill)
+        E, dec = cfg.encoder_layers, tree["dec_layers"]
+        xkv = _qtensor_leaves({k: dec["xattn"][k] for k in ("wk", "wv")})
+        return (dict(zero, flash_attention=E + 2 * L, int8_matmul=E * _qtensor_leaves(
+                    tree["enc_layers"]) + L * _qtensor_leaves(dec)),
+                dict(zero, decode_attention=2 * L,
+                     int8_matmul=L * (_qtensor_leaves(dec) - xkv)))
     attn = cfg.family != "ssm"
     int8 = L * _qtensor_leaves(tree["layers"])
     moe_gmm = 3 * L if cfg.is_moe else 0          # gate, up, down per layer
@@ -834,6 +888,9 @@ def _serve_arch(cfg, formats, seed: int, n_requests: int, prompt_len: int,
         for k, v in ops.launch_counts().items():
             profiled[k] += v - before[k]
         out["profile"][fmt] = {"prefill": prof_prefill, "si2_decode_step": prof_decode}
+        if cfg.family == "hybrid" and fmt == formats[0]:
+            out["mamba2_profile"] = _mamba2_profile(cfg, tree, batch, prompt_len,
+                                                    prof_prefill)
         print(f"[profile {cfg.name} {fmt}] " + json.dumps(out["profile"][fmt]),
               file=sys.stderr, flush=True)
         del eng2, g, cache, logits
@@ -846,6 +903,39 @@ def _serve_arch(cfg, formats, seed: int, n_requests: int, prompt_len: int,
     out["launches"] = {k: v - profiled[k] for k, v in ops.launch_counts().items()}
     out["graph_replay_launches"] = graph_launches
     del params, trees
+    return out
+
+
+def _mamba2_profile(cfg, params, batch: int, prompt_len: int, prefill: dict) -> dict:
+    """The Mamba2 layers' part of one hybrid prefill: torch.profiler's device
+    time of one layer (layer 0 on a random (B, S, D) input) and of its
+    chunked SSD recurrence alone, times the model's layers, over the whole
+    prefill's device time."""
+    import torch
+
+    from repro_torch.models import ssm, transformer
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    B, T, nh = batch, prompt_len, cfg.d_inner // cfg.ssm_head_dim
+    hd, S = cfg.ssm_head_dim, cfg.ssm_state
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+
+    x = (rand(B, T, cfg.d_model) * 2 - 1).to(cfg.torch_dtype)
+    layer = transformer._layer(params["mamba_layers"], 0)
+    xh, Bt, Ct, dt = rand(B, T, nh, hd) - 0.5, rand(B, T, S) - 0.5, rand(B, T, S) - 0.5, rand(B, T, nh)
+    h0 = torch.zeros((B, nh, hd, S), device="cuda")
+    with torch.no_grad():
+        block = profile_device_us(lambda: ssm.mamba2_block(layer, x, head_dim=hd, ssm_state=S))
+        ssd = profile_device_us(lambda: ssm.ssd_chunked(xh, Bt, Ct, -dt, dt, h0))
+    L, total = cfg.num_layers, prefill["device_us_total"]
+    out = {"layer_device_us": block["device_us_total"], "ssd_device_us": ssd["device_us_total"],
+           "layers_share_of_prefill": L * block["device_us_total"] / total,
+           "ssd_share_of_prefill": L * ssd["device_us_total"] / total,
+           "layer_top": block["top_other"], "ssd_top": ssd["top_other"]}
+    print(f"[mamba2 {cfg.name}] " + json.dumps(out), file=sys.stderr, flush=True)
     return out
 
 
@@ -865,12 +955,12 @@ def phase_serve(seed: int, n_requests: int = 8, prompt_len: int = 512,
     from repro_torch.configs import get_arch
 
     out = {"phase": "serve", "archs": {}}
-    for name, layers, formats in SERVE_ARCHS:
+    for name, layers, formats, changes in SERVE_ARCHS:
         cfg = get_arch(name)
         if layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
-        res = _serve_arch(cfg, formats, seed, n_requests, prompt_len, max_new, batch,
-                          max_seq)
+        run = dict(dict(prompt_len=prompt_len, max_new=max_new, max_seq=max_seq), **changes)
+        res = _serve_arch(cfg, formats, seed, n_requests, batch=batch, **run)
         if layers is not None:
             res["depth_cut"] = (f"{layers} of {get_arch(name).num_layers} layers: the "
                                 "full depth does not fit one 80 GB card in bf16")
@@ -1738,7 +1828,8 @@ def phase_fleet(seed: int, prompt_len: int = 512, max_new: int = 32) -> dict:
 
 # -- the api phase: the declarative spec API -------------------------------------------
 
-API_SMOKE_ARCHS = ("minitron-4b-smoke", "mixtral-8x7b-smoke", "rwkv6-3b-smoke")
+API_SMOKE_ARCHS = ("minitron-4b-smoke", "mixtral-8x7b-smoke", "rwkv6-3b-smoke",
+                   "zamba2-2.7b-smoke", "whisper-small-smoke")
 API_POLICY = dict(max_batch=8, batch_timeout_ms=20.0, max_seq=1024)
 
 
@@ -1778,8 +1869,9 @@ def _report_tokens(report) -> dict:
 
 
 def _api_smoke_f32(seed: int) -> dict:
-    """minitron-4b-smoke (rsm), mixtral-8x7b-smoke and rwkv6-3b-smoke in f32
-    through ServingSession, each a burst of 8 requests at t = 0 (8-token
+    """minitron-4b-smoke (rsm), mixtral-8x7b-smoke, rwkv6-3b-smoke,
+    zamba2-2.7b-smoke and whisper-small-smoke in f32 through
+    ServingSession, each a burst of 8 requests at t = 0 (8-token
     prompts, 6 new tokens), first on SI1, then the same spec on SI2 through
     ``with_override`` plus minitron-4b-smoke from rsm_int8 (the spec API
     rejects rsm_int8 on SI1; its SI2 tokens are held against an eager engine
@@ -1830,7 +1922,8 @@ def _api_smoke_f32(seed: int) -> dict:
     engine = sessions["SI2"].engine("minitron_int8")
     eager = EagerEngine(engine.cfg, engine.params, engine.max_seq).generate(
         prompts["minitron_int8"], 6).tokens
-    if tokens["SI2"]["minitron_int8"] != {100 * 3 + j: eager[j].tolist() for j in range(8)}:
+    rid0 = 100 * (len(spec_si2.endpoints) - 1)
+    if tokens["SI2"]["minitron_int8"] != {rid0 + j: eager[j].tolist() for j in range(8)}:
         raise AssertionError("api f32 smoke: minitron_int8's SI2 tokens differ from eager")
     total = {k: out["SI2"]["launches"][k] + out["SI2"]["graph_replay_launches"][k]
              for k in KERNEL_SOURCES}

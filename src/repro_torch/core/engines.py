@@ -75,9 +75,19 @@ class Engine:
         self.device = resolve_device(device)
 
     # -- execution hooks ------------------------------------------------------
+    def _batch(self, tokens) -> dict:
+        """The prefill's batch: the tokens and, for audio, the stub front
+        end's frames, zeros (B, encoder_seq, D) in the model dtype."""
+        batch = {"tokens": tokens}
+        cfg = self.cfg
+        if cfg.family == "audio":
+            batch["frames"] = torch.zeros((tokens.shape[0], cfg.encoder_seq, cfg.d_model),
+                                          dtype=cfg.torch_dtype, device=self.device)
+        return batch
+
     def _prefill(self, tokens):
         with torch.no_grad():
-            return transformer.prefill(self.params, self.cfg, {"tokens": tokens},
+            return transformer.prefill(self.params, self.cfg, self._batch(tokens),
                                        self.max_seq)
 
     def _decode(self, cache, tokens):
@@ -266,7 +276,7 @@ class CompiledEngine(Engine):
             return super()._prefill(tokens)
         g = self._graph(tokens.shape[0])
         with torch.no_grad():
-            return transformer.prefill(self.params, self.cfg, {"tokens": tokens},
+            return transformer.prefill(self.params, self.cfg, self._batch(tokens),
                                        self.max_seq, cache=g.cache)
 
     def _decode(self, cache, tokens):

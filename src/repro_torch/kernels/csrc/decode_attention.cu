@@ -68,6 +68,13 @@ struct Smem {
   static constexpr int STAGE = 2 * TILE * ROW;         // a key and a value tile
 };
 
+// Does lane own its c-th value column?  Every column below DH has one owner;
+// the test folds away when 32 divides DH.
+template <int DH>
+__device__ __forceinline__ bool col_ok_dh(int lane, int c) {
+  return DH % 32 == 0 || lane * ((DH + 31) / 32) + c < DH;
+}
+
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
@@ -76,7 +83,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     float* __restrict__ part_ml, int G, int S, int chunk,
                     Strides sq, Strides sk, Strides sv, Strides so, int window,
                     float scale) {
-  constexpr int VPL = DH / 32;                  // value columns per lane
+  // value columns per lane: lane owns lane*VPL .. +VPL, those below DH (at
+  // DH = 80 lanes 0-26 own 3 columns each, the last lane 2, lanes 27-31 none)
+  constexpr int VPL = (DH + 31) / 32;
   constexpr int CPR = DH * (int)sizeof(T) / 16;  // 16-byte chunks per row
   constexpr int PER16 = 16 / (int)sizeof(T);
   constexpr int ROW = Smem<T, DH>::ROW;
@@ -186,7 +195,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       const T* vrow = reinterpret_cast<const T*>(vs + j * ROW) + lane * VPL;
       float vv[VPL];
 #pragma unroll
-      for (int c = 0; c < VPL; ++c) vv[c] = to_f32(vrow[c]);
+      for (int c = 0; c < VPL; ++c) vv[c] = col_ok_dh<DH>(lane, c) ? to_f32(vrow[c]) : 0.f;
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
         if (warp + r * WARPS >= G) break;
@@ -209,7 +218,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       const float inv = 1.f / fmaxf(l[r], 1e-20f);
 #pragma unroll
       for (int c = 0; c < VPL; ++c)
-        o[b * so.b + kh * so.h + g * so.r + lane * VPL + c] = from_f32<T>(acc[r][c] * inv);
+        if (col_ok_dh<DH>(lane, c))
+          o[b * so.b + kh * so.h + g * so.r + lane * VPL + c] = from_f32<T>(acc[r][c] * inv);
       continue;
     }
     if (lane == 0) {
@@ -217,7 +227,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       part_ml[(part + g) * 2 + 1] = l[r];
     }
 #pragma unroll
-    for (int c = 0; c < VPL; ++c) part_acc[(part + g) * DH + lane * VPL + c] = acc[r][c];
+    for (int c = 0; c < VPL; ++c)
+      if (col_ok_dh<DH>(lane, c)) part_acc[(part + g) * DH + lane * VPL + c] = acc[r][c];
   }
 }
 
@@ -287,8 +298,11 @@ int launch(const void* q, const void* kc, const void* vc, const int* lengths, vo
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
       lengths, static_cast<T*>(o), part_acc, part_ml, G, S, chunk, sq, sk, sv, so, window,
       scale);
+  // the merge in whole warps (G * DH = 80 at G = 1, DH = 80): its warp loop
+  // counts only full warps, and a thread past G * DH takes no element
   if (splits > 1)
-    decode_merge_kernel<T><<<dim3(K, B), G * DH, (G * splits + G) * sizeof(float), stream>>>(
+    decode_merge_kernel<T><<<dim3(K, B), (G * DH + 31) / 32 * 32,
+                             (G * splits + G) * sizeof(float), stream>>>(
         part_acc, part_ml, static_cast<T*>(o), G, DH, splits, so);
   return static_cast<int>(cudaGetLastError());
 }
@@ -304,6 +318,9 @@ int dispatch_dh(int dh, const void* q, const void* kc, const void* vc, const int
                            sv, so, window, scale, s);
     case 64:
       return launch<T, 64>(q, kc, vc, lengths, o, pa, pm, B, K, G, S, splits, chunk, sq, sk,
+                           sv, so, window, scale, s);
+    case 80:
+      return launch<T, 80>(q, kc, vc, lengths, o, pa, pm, B, K, G, S, splits, chunk, sq, sk,
                            sv, so, window, scale, s);
     case 128:
       return launch<T, 128>(q, kc, vc, lengths, o, pa, pm, B, K, G, S, splits, chunk, sq, sk,

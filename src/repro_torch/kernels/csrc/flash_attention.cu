@@ -22,7 +22,8 @@
 //        tensor cores.  One block of 4 warps per (64-row q tile, q head,
 //        batch), 16 q rows per warp.  Q, K and V tiles stay bf16 in shared
 //        memory (rows padded by 16 bytes so ldmatrix does not conflict), 87 KB
-//        at dh 128, so two blocks share an SM.  K/V tiles arrive through a
+//        at dh 128, so two blocks share an SM; at dh 80 (zamba2: 5 k-steps of
+//        16, 176-byte rows, still conflict-free) 55 KB.  K/V tiles arrive through a
 //        double-buffered cp.async ring: tile j+1 loads while tile j computes.
 //        S = Q K^T runs as mma.sync.m16n8k16 bf16 -> f32 with ldmatrix
 //        fragments (Q's fragments stay in registers for the whole block); the
@@ -201,6 +202,7 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
   switch (dh) {
     case 32: return launch<T, 32>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+    case 80: return launch<T, 80>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -499,6 +501,7 @@ extern "C" int flash_attention_fwd(
     switch (dh) {
       case 32: return launch_mma<32>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
       case 64: return launch_mma<64>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+      case 80: return launch_mma<80>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
       case 128: return launch_mma<128>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }

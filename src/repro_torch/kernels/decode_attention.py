@@ -25,7 +25,7 @@ from repro_torch.kernels import build, ref
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {"decode_attention_fwd": (
     [_P] * 7 + [_I] * 8 + [_L] * 12 + [_I, _F, _P], ctypes.c_int)}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 MAX_GROUP = 8     # query rows per kv head the kernel serves (csrc MAXG)
 TILE = 32         # cache entries per staged tile (csrc TILE); a split is a multiple
 BLOCKS_PER_SM = 8  # the split kernel aims at this many blocks per SM

@@ -27,7 +27,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {"flash_attention_fwd": (
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I] + [_L] * 12
     + [_I, _I, _F, _P], ctypes.c_int)}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 PATHS = {"fma": 0, "mma": 1}   # csrc/flash_attention.cu FLASH_PATH_*
 
 

@@ -1,12 +1,21 @@
-"""Attention-free sequence mixer: RWKV6 ("Finch").
+"""Attention-free sequence mixers: RWKV6 ("Finch") and Mamba2 (SSD).
 
-The counterpart of the RWKV6 half of the JAX package's ``models/ssm.py``
-(Mamba2 comes with the hybrid family).  The time mix's projections run in
-float32 with float32 weights, as there; its WKV recurrence runs through
-``ops.rwkv6_scan`` (K5 on the GPU) for any T, so the prefill and every
-decode step (T = 1) take the same kernel and the same state layout
-(B, H, hd, hd) [key dim, value dim].  The channel mix stays in the model
-dtype.
+The counterpart of the JAX package's ``models/ssm.py``.
+
+RWKV6: the time mix's projections run in float32 with float32 weights, as
+there; its WKV recurrence runs through ``ops.rwkv6_scan`` (K5 on the GPU)
+for any T, so the prefill and every decode step (T = 1) take the same kernel
+and the same state layout (B, H, hd, hd) [key dim, value dim].  The channel
+mix stays in the model dtype.
+
+Mamba2 (zamba2's backbone): the JAX package steps its recurrence with
+``lax.scan`` over T and has no Pallas kernel for it.  Here a decode step
+(T = 1) takes the one-step recurrence, and a prompt (T > 1) the same
+recurrence in its chunked (SSD) form, in float32: within a chunk of 64 steps
+the decays are cumulative sums of log-decays and the outputs one masked
+product; between chunks one state is carried.  A step loop would launch a
+few kernels for each of T steps of each layer.  Both forms return the
+reference's (conv, ssm) state.
 """
 
 from __future__ import annotations
@@ -137,3 +146,129 @@ def rwkv6_block(p, x, head_dim: int, cache=None, state_out=None):
         shift_prev=c.get("cm_shift"))
     x = x + h
     return x, {"wkv": wkv_state, "tm_shift": tm_shift, "cm_shift": cm_shift}
+
+
+# =============================================================================
+# Mamba2 (SSD, scalar-identity A per head), used by zamba2
+# =============================================================================
+
+CONV_WIDTH = 4
+SSD_CHUNK = 64
+
+
+def mamba2_layer_specs(d_model: int, d_inner: int, ssm_state: int, head_dim: int):
+    """Leaf specs {name: (shape, init, scale[, dtype])} of one Mamba2 layer."""
+    nh = d_inner // head_dim
+    S = ssm_state
+    conv_dim = d_inner + 2 * S
+    f32 = torch.float32
+    return {
+        "norm_w": ((d_model,), "ones", None),
+        "in_proj": ((d_model, 2 * d_inner + 2 * S + nh), "normal", d_model ** -0.5),
+        "conv_w": ((CONV_WIDTH, conv_dim), "normal", 0.2),
+        "conv_b": ((conv_dim,), "zeros", None),
+        "A_log": ((nh,), "zeros", None, f32),
+        "D_skip": ((nh,), "ones", None, f32),
+        "dt_bias": ((nh,), "zeros", None, f32),
+        "gnorm_w": ((d_inner,), "ones", None),
+        "out_proj": ((d_inner, d_model), "normal", d_inner ** -0.5),
+    }
+
+
+def _causal_depthwise_conv(x, w, b, conv_state=None):
+    """x: (B,T,C), w: (W,C). Returns (y (B,T,C), new_state (B,W-1,C))."""
+    W = w.shape[0]
+    B, T, C = x.shape
+    prev = (conv_state.to(x.dtype) if conv_state is not None
+            else x.new_zeros((B, W - 1, C)))
+    xp = torch.cat([prev, x], dim=1)  # (B, T+W-1, C)
+    y = sum(xp[:, i: i + T] * w[i] for i in range(W)) + b
+    return F.silu(y), xp[:, -(W - 1):]
+
+
+def mamba2_step(h, x, B_t, C_t, decay, dt):
+    """One recurrence step (the reference's scan body), float32.
+
+    h: (B, nh, hd, S); x: (B, nh, hd); B_t, C_t: (B, S); decay, dt: (B, nh).
+    Returns (h, y (B, nh, hd)).
+    """
+    h = decay[..., None, None] * h + (dt[..., None] * x)[..., None] * B_t[:, None, None, :]
+    return h, torch.einsum("bnds,bs->bnd", h, C_t)
+
+
+def ssd_chunked(x, B_t, C_t, log_decay, dt, h0, chunk: int = SSD_CHUNK):
+    """The recurrence of ``mamba2_step`` over T steps in its chunked form.
+
+    x: (B, T, nh, hd); B_t, C_t: (B, T, S); log_decay (A * dt) and dt:
+    (B, T, nh); h0: (B, nh, hd, S); all float32.  Returns (y (B, T, nh, hd),
+    h_final).  T is padded to a multiple of ``chunk`` with steps of no decay
+    and no input, which carry the state through unchanged.  Heads lead the
+    steps in every (B, chunks, nh, chunk, chunk) tensor, so the elementwise
+    passes over them run on contiguous rows and the products are batched
+    matmuls with no transposed copy.
+    """
+    Bsz, T, nh, hd = x.shape
+    S = B_t.shape[-1]
+    pad = (-T) % chunk
+    xdt = x * dt[..., None]
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        B_t, C_t = (F.pad(t, (0, 0, 0, pad)) for t in (B_t, C_t))
+        log_decay = F.pad(log_decay, (0, 0, 0, pad))
+    nc, L = (T + pad) // chunk, chunk
+    xdt = xdt.view(Bsz, nc, L, nh, hd).transpose(2, 3)             # (B, nc, nh, L, hd)
+    Bc, Cc = B_t.view(Bsz, nc, 1, L, S), C_t.view(Bsz, nc, 1, L, S)
+    cum = torch.cumsum(log_decay.view(Bsz, nc, L, nh).transpose(2, 3), dim=-1)  # (B, nc, nh, L)
+    # decay from step u to step t, exp(cum_t - cum_u) for u <= t; the upper
+    # triangle is -inf before the exp, so nothing there can overflow
+    w = cum[..., :, None] - cum[..., None, :]                       # (B, nc, nh, t, u)
+    upper = torch.ones(L, L, dtype=torch.bool, device=x.device).triu(1)
+    w = w.masked_fill_(upper, float("-inf")).exp_().mul_(Cc @ Bc.transpose(-1, -2))
+    y = w @ xdt                                                     # within the chunk
+    # each chunk's own contribution to the state at its end
+    to_end = torch.exp(cum[..., -1:] - cum)                         # (B, nc, nh, L)
+    states = (xdt * to_end[..., None]).transpose(-1, -2) @ Bc      # (B, nc, nh, hd, S)
+    chunk_decay = torch.exp(cum[..., -1])                           # (B, nc, nh)
+    h = h0
+    h_in = []
+    for c in range(nc):  # the state entering each chunk
+        h_in.append(h)
+        h = chunk_decay[:, c, :, None, None] * h + states[:, c]
+    h_in = torch.stack(h_in, dim=1)                                 # (B, nc, nh, hd, S)
+    y = y + (Cc @ h_in.transpose(-1, -2)) * torch.exp(cum)[..., None]
+    return y.transpose(2, 3).reshape(Bsz, nc * L, nh, hd)[:, :T], h
+
+
+def mamba2_mix(p, x, *, head_dim: int, ssm_state: int, cache=None):
+    """x: (B,T,D). Returns (y, {"conv": (B, 3, C), "ssm": (B, nh, hd, S) f32})."""
+    B, T, D = x.shape
+    c = cache or {}
+    zxbcdt = x @ p["in_proj"]
+    d_inner = p["out_proj"].shape[0]
+    nh = d_inner // head_dim
+    S = ssm_state
+    z, xBC, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * S, nh], dim=-1)
+    xBC, conv_state = _causal_depthwise_conv(xBC, p["conv_w"], p["conv_b"], c.get("conv"))
+    xs, Bs, Cs = torch.split(xBC, [d_inner, S, S], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])                     # (B,T,nh)
+    A = -torch.exp(p["A_log"].float())                             # (nh,)
+    xh = xs.float().reshape(B, T, nh, head_dim)
+    h0 = (c["ssm"].float() if c.get("ssm") is not None
+          else torch.zeros((B, nh, head_dim, S), dtype=torch.float32, device=x.device))
+    if T == 1:
+        h, y = mamba2_step(h0, xh[:, 0], Bs[:, 0].float(), Cs[:, 0].float(),
+                           torch.exp(A * dt[:, 0]), dt[:, 0])
+        y = y[:, None]
+    else:
+        y, h = ssd_chunked(xh, Bs.float(), Cs.float(), A * dt, dt, h0)
+    y = y + p["D_skip"][:, None] * xh                              # (B,T,nh,hd)
+    y = y.reshape(B, T, d_inner)
+    y = layers.rms_norm(y * F.silu(z.float()), p["gnorm_w"])
+    y = y.to(x.dtype) @ p["out_proj"]
+    return y, {"conv": conv_state, "ssm": h}
+
+
+def mamba2_block(p, x, *, head_dim: int, ssm_state: int, cache=None):
+    h, new_cache = mamba2_mix(p, layers.rms_norm(x, p["norm_w"]), head_dim=head_dim,
+                              ssm_state=ssm_state, cache=cache)
+    return x + h, new_cache

@@ -1,11 +1,18 @@
-"""Model assembly: the dense, moe and vlm decoder-only transformers and the
-ssm family (rwkv6).
+"""Model assembly for every family of the JAX package.
 
-The counterpart of the JAX package's ``models/transformer.py``.  Parameters
-are a nested dict of tensors with the JAX package's keys, each layer leaf
-stacked on a leading (L, ...) axis; the layers run as a Python loop over
-views of those leaves.  The hybrid and audio families come with their own
-slices and raise ``NotImplementedError`` here.
+The counterpart of the JAX package's ``models/transformer.py``:
+  dense / moe / vlm : decoder-only transformer.
+  ssm (rwkv6)       : a stack of RWKV6 blocks.
+  hybrid (zamba2)   : groups of ``attn_every`` Mamba2 layers, each group
+                      followed by one SHARED (weight-tied) attention block
+                      on the group's input times a per-group gain.
+  audio (whisper)   : encoder-decoder; the mel/conv front end is stubbed
+                      (``batch["frames"]`` holds the encoder's input
+                      embeddings).  As in the JAX package the encoder's self
+                      attention is causal; only the cross attention is not.
+Parameters are a nested dict of tensors with the JAX package's keys, each
+layer leaf stacked on a leading (L, ...) axis; the layers run as a Python
+loop over views of those leaves.
 
 Entry points, used by serving:
   init_params(cfg, seed, device)             -> params
@@ -15,10 +22,10 @@ Entry points, used by serving:
   prefill(params, cfg, batch, max_seq)       -> (logits_last, cache)
   decode_step(params, cfg, cache, tokens)    -> (logits, cache)
 
-``decode_step`` writes the new kv entries (or, for ssm, the WKV state and
-the token shifts) into the cache tensors in place (the counterpart of the
-JAX package donating its cache) and never reads a device value on the host,
-so a CUDA graph can capture it.
+``decode_step`` writes the new kv entries (for ssm the WKV state and the
+token shifts, for hybrid also the Mamba2 conv and ssm states) into the cache
+tensors in place (the counterpart of the JAX package donating its cache) and
+never reads a device value on the host, so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -34,14 +41,13 @@ from repro_torch.models import layers, moe, rope, ssm
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.serving.formats import QTensor
 
-SUPPORTED_FAMILIES = ("dense", "moe", "vlm", "ssm")
+SUPPORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def _check_family(cfg: ModelConfig):
     if cfg.family not in SUPPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(repro_torch runs {SUPPORTED_FAMILIES})")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} "
+                         f"(repro_torch runs {SUPPORTED_FAMILIES})")
 
 
 # =============================================================================
@@ -88,10 +94,8 @@ def _leaves(specs, n: int = 0):
                 dtype[0] if dtype else None, n)
 
 
-def _layer_specs(cfg: ModelConfig):
+def _decoder_layer_specs(cfg: ModelConfig):
     D = cfg.d_model
-    if cfg.family == "ssm":
-        return ssm.rwkv6_layer_specs(D, cfg.d_ff, cfg.ssm_head_dim)
     layer = {
         "ln1": ((D,), "ones", None),
         "ln2": ((D,), "ones", None),
@@ -102,6 +106,19 @@ def _layer_specs(cfg: ModelConfig):
     else:
         layer["mlp"] = layers.mlp_specs(D, cfg.d_ff, cfg.mlp)
     return layer
+
+
+def _xattn_layer_specs(cfg: ModelConfig):
+    """Whisper decoder layer: self attention, cross attention, gelu mlp."""
+    D = cfg.d_model
+    return {
+        "ln1": ((D,), "ones", None),
+        "lnx": ((D,), "ones", None),
+        "ln2": ((D,), "ones", None),
+        "attn": _attn_specs(cfg),
+        "xattn": _attn_specs(cfg),
+        "mlp": layers.mlp_specs(D, cfg.d_ff, cfg.mlp),
+    }
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -115,7 +132,20 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((D, V), "normal", D ** -0.5)
     specs = _leaves(specs)
-    specs["layers"] = _leaves(_layer_specs(cfg), cfg.num_layers)
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        specs["layers"] = _leaves(ssm.rwkv6_layer_specs(D, cfg.d_ff, cfg.ssm_head_dim), L)
+    elif cfg.family == "hybrid":
+        specs["mamba_layers"] = _leaves(ssm.mamba2_layer_specs(
+            D, cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim), L)
+        specs["shared"] = _leaves(_decoder_layer_specs(cfg))
+        specs["group_gain"] = _leaves(((L // cfg.attn_every, D), "ones", None))
+    elif cfg.family == "audio":
+        specs["enc_layers"] = _leaves(_decoder_layer_specs(cfg), cfg.encoder_layers)
+        specs["enc_final_norm"] = _leaves(((D,), "ones", None))
+        specs["dec_layers"] = _leaves(_xattn_layer_specs(cfg), L)
+    else:
+        specs["layers"] = _leaves(_decoder_layer_specs(cfg), L)
     return specs
 
 
@@ -203,8 +233,9 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _layers(params, cfg: ModelConfig):
-    return [_layer(params["layers"], i) for i in range(cfg.num_layers)]
+def _layers(stacked, n: int):
+    """The parameters of each of the ``n`` layers of a stacked (L, ...) tree."""
+    return [_layer(stacked, i) for i in range(n)]
 
 
 # =============================================================================
@@ -212,14 +243,22 @@ def _layers(params, cfg: ModelConfig):
 # =============================================================================
 
 
+def _q_proj(p, cfg: ModelConfig, x):
+    """The query projection of ``_qkv``, before rope (alone: cross attention)."""
+    B, S = x.shape[0], x.shape[1]
+    q = layers.dense(x, p["wq"], p.get("bq")).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
 def _qkv(p, cfg: ModelConfig, x, angles):
     B, S = x.shape[0], x.shape[1]
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = layers.dense(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    q = _q_proj(p, cfg, x)
     k = layers.dense(x, p["wk"], p.get("bk")).reshape(B, S, K, hd)
     v = layers.dense(x, p["wv"], p.get("bv")).reshape(B, S, K, hd)
     if cfg.qk_norm:
-        q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
     if angles is not None:
         q = rope.apply_rotary(q, angles)
@@ -290,6 +329,21 @@ def _self_attention_decode(p, cfg, x, angles, kc, vc, lengths, write, *, window=
     return layers.dense(o.reshape(B, 1, -1), p["wo"])
 
 
+def _cross_attention(p, cfg, x, enc_k, enc_v):
+    """Non-causal attention of the decoder's queries over the encoder's k/v."""
+    B, S, _ = x.shape
+    o = attention(_q_proj(p, cfg, x), enc_k, enc_v, causal=False)
+    return layers.dense(o.reshape(B, S, -1), p["wo"])
+
+
+def _enc_kv(p, cfg, enc_out):
+    B, T, _ = enc_out.shape
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    k = layers.dense(enc_out, p["wk"], p.get("bk")).reshape(B, T, K, hd)
+    v = layers.dense(enc_out, p["wv"], p.get("bv")).reshape(B, T, K, hd)
+    return k, v
+
+
 def _ffn(p, cfg: ModelConfig, x):
     """Returns (out, aux_loss or None)."""
     if cfg.is_moe:
@@ -328,6 +382,14 @@ def _rope_angles_for(cfg: ModelConfig, batch, B, S, device):
     return rope.rope_angles(pos, cfg.head_dim, cfg.rope_theta)
 
 
+def _sinusoid(positions, D: int):
+    """Sinusoidal position embeddings (whisper) at ``positions`` (N,): (N, D) f32."""
+    pos = positions.to(torch.float32)[:, None]
+    i = torch.arange(D // 2, dtype=torch.float32, device=positions.device)[None, :]
+    ang = pos / (10000.0 ** (2 * i / D))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def _embed_in(params, cfg, batch):
     if batch.get("embeds") is not None:
         return batch["embeds"].to(cfg.torch_dtype)
@@ -344,39 +406,107 @@ def _lm_logits(params, cfg, x, logits_for: str = "all"):
 
 def forward(params, cfg: ModelConfig, batch, *, collect_kv: bool = False,
             logits_for: str = "all"):
-    """Full-sequence scoring. Returns dict(logits, aux_loss [, kv | state]).
+    """Full-sequence scoring. Returns dict(logits, aux_loss [, kv | state | xkv]).
 
     logits_for="last" computes the LM head on the final position only (the
     prefill path: avoids materializing the (B, S, V) logits tensor).  With
     ``collect_kv`` an attention family returns ``kv`` (k, v) each
-    (L, B, S, K, hd), and ssm returns ``state`` {"wkv", "tm_shift",
-    "cm_shift"} stacked over layers.
+    (L, B, S, K, hd) (hybrid: one per group, (G, B, S, K, hd)); ssm returns
+    ``state`` {"wkv", "tm_shift", "cm_shift"} and hybrid ``state`` {"conv",
+    "ssm"}, stacked over layers; audio also returns ``xkv``, the cross
+    attention's (k, v) each (L, B, encoder_seq, K, hd).
     """
     _check_family(cfg)
+    if cfg.family == "audio":
+        return _forward_whisper(params, cfg, batch, collect_kv=collect_kv,
+                                logits_for=logits_for)
     x = _embed_in(params, cfg, batch)
     B, S, _ = x.shape
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    collected = []
+    out = {}
     if cfg.family == "ssm":
-        for lp in _layers(params, cfg):
+        collected = []
+        for lp in _layers(params["layers"], cfg.num_layers):
             x, state = ssm.rwkv6_block(lp, x, cfg.ssm_head_dim)
             if collect_kv:
                 collected.append(state)
+        if collect_kv:
+            out["state"] = {key: torch.stack([st[key] for st in collected])
+                            for key in ("wkv", "tm_shift", "cm_shift")}
+    elif cfg.family == "hybrid":
+        x, state, kv = _forward_hybrid(params, cfg, batch, x)
+        if collect_kv:
+            out["state"], out["kv"] = state, kv
     else:
         angles = _rope_angles_for(cfg, batch, B, S, x.device)
-        for lp in _layers(params, cfg):
+        collected = []
+        for lp in _layers(params["layers"], cfg.num_layers):
             x, kv, aux = _decoder_layer(lp, cfg, x, angles, window=cfg.attn_window)
             if aux is not None:
                 aux_total = aux_total + aux
             if collect_kv:
                 collected.append(kv)
-    out = {"logits": _lm_logits(params, cfg, x, logits_for), "aux_loss": aux_total}
-    if collect_kv and cfg.family == "ssm":
-        out["state"] = {key: torch.stack([st[key] for st in collected])
-                        for key in ("wkv", "tm_shift", "cm_shift")}
-    elif collect_kv:
-        out["kv"] = (torch.stack([k for k, _ in collected]),
-                     torch.stack([v for _, v in collected]))  # each (L,B,S,K,hd)
+        if collect_kv:
+            out["kv"] = _stack_kv(collected)
+    return dict(out, logits=_lm_logits(params, cfg, x, logits_for), aux_loss=aux_total)
+
+
+def _stack_kv(kvs):
+    """[(k, v)] per layer -> (k, v) each (L, B, S, K, hd)."""
+    return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
+
+
+def _forward_hybrid(params, cfg, batch, x):
+    """Returns (x, {"conv", "ssm"} each (L, ...), kv (G, B, S, K, hd) pair)."""
+    B, S, _ = x.shape
+    angles = _rope_angles_for(cfg, batch, B, S, x.device)
+    mamba = _layers(params["mamba_layers"], cfg.num_layers)
+    ae = cfg.attn_every
+    states, kvs = [], []
+    for g in range(cfg.num_layers // ae):
+        for lp in mamba[g * ae:(g + 1) * ae]:
+            x, st = ssm.mamba2_block(lp, x, head_dim=cfg.ssm_head_dim,
+                                     ssm_state=cfg.ssm_state)
+            states.append(st)
+        # the shared (weight-tied) attention block, on a per-group input gain
+        x, kv, _ = _decoder_layer(params["shared"], cfg, x * params["group_gain"][g],
+                                  angles, window=cfg.attn_window)
+        kvs.append(kv)
+    state = {key: torch.stack([st[key] for st in states]) for key in ("conv", "ssm")}
+    return x, state, _stack_kv(kvs)
+
+
+def _forward_whisper(params, cfg, batch, *, collect_kv=False, logits_for: str = "all"):
+    """batch: frames (B, encoder_seq, D) from the stub front end + decoder tokens."""
+    dt = cfg.torch_dtype
+    frames = batch["frames"]
+    T = frames.shape[1]
+    enc = frames.to(dt) + _sinusoid(torch.arange(T, device=frames.device),
+                                    cfg.d_model).to(dt)
+    for lp in _layers(params["enc_layers"], cfg.encoder_layers):
+        enc, _, _ = _decoder_layer(lp, cfg, enc, None, window=None)
+    enc = layers.rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
+
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = layers.embed(tokens, params["embed"]) + _sinusoid(
+        torch.arange(S, device=tokens.device), cfg.d_model).to(dt)
+    kvs, xkvs = [], []
+    for lp in _layers(params["dec_layers"], cfg.num_layers):
+        h, kv = _self_attention_full(
+            lp["attn"], cfg, layers.rms_norm(x, lp["ln1"], cfg.norm_eps), None)
+        x = x + h
+        ek, ev = _enc_kv(lp["xattn"], cfg, enc)
+        x = x + _cross_attention(
+            lp["xattn"], cfg, layers.rms_norm(x, lp["lnx"], cfg.norm_eps), ek, ev)
+        h, _ = _ffn(lp, cfg, layers.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + h
+        kvs.append(kv)
+        xkvs.append((ek, ev))
+    out = {"logits": _lm_logits(params, cfg, x, logits_for),
+           "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+    if collect_kv:
+        out["kv"], out["xkv"] = _stack_kv(kvs), _stack_kv(xkvs)
     return out
 
 
@@ -389,8 +519,12 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
                device=None):
     """Allocate the decode cache for ``batch_size`` slots of ``max_seq``.
 
-    Attention families: k, v (L, B, max_seq, K, hd).  ssm: the WKV state
+    dense / moe / vlm: k, v (L, B, max_seq, K, hd).  ssm: the WKV state
     (L, B, H, hd, hd) f32 and the token shifts (L, B, D); max_seq is unused.
+    hybrid: the Mamba2 conv state (L, B, 3, d_inner + 2 S) and ssm state
+    (L, B, nh, hd, S) f32, and the shared block's k, v (G, B, max_seq, K, hd).
+    audio: k, v (L, B, max_seq, K, hd) and the cross attention's xk, xv
+    (L, B, encoder_seq, K, hd).
     """
     _check_family(cfg)
     device = resolve_device(device)
@@ -407,17 +541,34 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None,
             "lengths": lengths,
         }
     K, hd = cfg.num_kv_heads, cfg.head_dim
-    return {
+    if cfg.family == "hybrid":
+        G = L // cfg.attn_every
+        nh = cfg.d_inner // cfg.ssm_head_dim
+        conv = (L, B, ssm.CONV_WIDTH - 1, cfg.d_inner + 2 * cfg.ssm_state)
+        return {
+            "conv": torch.zeros(conv, dtype=dt, device=device),
+            "ssm": torch.zeros((L, B, nh, cfg.ssm_head_dim, cfg.ssm_state),
+                               dtype=torch.float32, device=device),
+            "k": torch.zeros((G, B, max_seq, K, hd), dtype=dt, device=device),
+            "v": torch.zeros((G, B, max_seq, K, hd), dtype=dt, device=device),
+            "lengths": lengths,
+        }
+    cache = {
         "k": torch.zeros((L, B, max_seq, K, hd), dtype=dt, device=device),
         "v": torch.zeros((L, B, max_seq, K, hd), dtype=dt, device=device),
-        "lengths": lengths,
     }
+    if cfg.family == "audio":
+        cache["xk"] = torch.zeros((L, B, cfg.encoder_seq, K, hd), dtype=dt, device=device)
+        cache["xv"] = torch.zeros((L, B, cfg.encoder_seq, K, hd), dtype=dt, device=device)
+    cache["lengths"] = lengths
+    return cache
 
 
 def prefill(params, cfg: ModelConfig, batch, max_seq: int, cache=None):
     """Run the prompt through the model, build the decode cache.
 
-    batch["tokens"]: (B, S) with S <= max_seq (uniform prompt length).
+    batch["tokens"]: (B, S) with S <= max_seq (uniform prompt length);
+    audio also takes batch["frames"] (B, encoder_seq, D).
     ``cache``, if given, is an ``init_cache`` of B slots that is overwritten
     in place (a CUDA graph's static buffers) instead of allocating one; it
     ends as a fresh cache would.
@@ -428,18 +579,19 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int, cache=None):
     B, S = src.shape[0], src.shape[1]
     if cache is None:
         cache = init_cache(cfg, B, max_seq, device=src.device)
-    elif (cache["wkv"].shape[1] != B if cfg.family == "ssm"
-          else tuple(cache["k"].shape[1:3]) != (B, max_seq)):
+    elif cache["lengths"].shape[0] != B or ("k" in cache and cache["k"].shape[2] != max_seq):
         raise ValueError(f"prefill: the cache does not hold {B} slots of {max_seq}")
-    if cfg.family == "ssm":
-        for key, value in out["state"].items():
-            cache[key].copy_(value)
-    else:
+    for key, value in out.get("state", {}).items():
+        cache[key].copy_(value)
+    if "kv" in out:
         cache["k"][:, :, S:].zero_()
         cache["v"][:, :, S:].zero_()
         k, v = out["kv"]
         cache["k"][:, :, :S] = k.to(cache["k"].dtype)
         cache["v"][:, :, :S] = v.to(cache["v"].dtype)
+    if "xkv" in out:
+        cache["xk"].copy_(out["xkv"][0])
+        cache["xv"].copy_(out["xkv"][1])
     cache["lengths"].fill_(S)
     return out["logits"][:, -1], cache
 
@@ -451,7 +603,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions=None,
     tokens: (B,) int (the previously sampled token). Returns (logits (B, V)
     f32, cache with lengths += 1); the tensors of the returned cache other
     than lengths are those of ``cache``, updated in place: the new kv entry
-    of every layer, or for ssm every layer's WKV state and token shifts.
+    of every layer, the recurrent states of every ssm or Mamba2 layer.
 
     uniform_lengths=True promises every slot is at the same position
     (lockstep decode pools): every slot writes at slot 0's position.
@@ -461,7 +613,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions=None,
     B = tokens.shape[0]
     x = layers.embed(tokens, params["embed"])[:, None]  # (B,1,D)
     if cfg.family == "ssm":
-        for i, lp in enumerate(_layers(params, cfg)):
+        for i, lp in enumerate(_layers(params["layers"], cfg.num_layers)):
             state = {key: cache[key][i] for key in ("wkv", "tm_shift", "cm_shift")}
             # the kernel writes the new WKV state over the old, in place
             x, new = ssm.rwkv6_block(lp, x, cfg.ssm_head_dim, cache=state,
@@ -471,6 +623,25 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions=None,
         cache = dict(cache, lengths=lengths + 1)
         return _lm_logits(params, cfg, x)[:, 0], cache
 
+    write = _write_slots(cache, lengths, uniform_lengths)
+    if cfg.family == "hybrid":
+        x = _decode_hybrid(params, cfg, cache, x, lengths, write)
+    elif cfg.family == "audio":
+        x = _decode_whisper(params, cfg, cache, x, lengths, write)
+    else:
+        x = _decode_decoder(params, cfg, cache, x, lengths, write, positions)
+    cache = dict(cache, lengths=lengths + 1)
+    return _lm_logits(params, cfg, x)[:, 0], cache
+
+
+def _layer_write(write, i: int):
+    """``_write_slots``'s (position, keep, old k, old v) for layer ``i``."""
+    pos, keep, k_old, v_old = write
+    return pos, keep, k_old[i], v_old[i]
+
+
+def _decode_decoder(params, cfg, cache, x, lengths, write, positions):
+    B = x.shape[0]
     # native sliding window always applies; the long-context window variant
     # only engages for caches past 64k (dense archs stay full-attention at 32k)
     window = cfg.attn_window
@@ -486,15 +657,67 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, positions=None,
     else:
         angles = rope.rope_angles(lengths[:, None], cfg.head_dim, cfg.rope_theta)
 
-    pos, keep, k_old, v_old = _write_slots(cache, lengths, uniform_lengths)
-    for i, lp in enumerate(_layers(params, cfg)):
+    for i, lp in enumerate(_layers(params["layers"], cfg.num_layers)):
         h = _self_attention_decode(
             lp["attn"], cfg, layers.rms_norm(x, lp["ln1"], cfg.norm_eps),
-            angles, cache["k"][i], cache["v"][i], lengths,
-            (pos, keep, k_old[i], v_old[i]), window=window,
+            angles, cache["k"][i], cache["v"][i], lengths, _layer_write(write, i),
+            window=window,
         )
         x = x + h
         h, _ = _ffn(lp, cfg, layers.rms_norm(x, lp["ln2"], cfg.norm_eps))
         x = x + h
-    cache = dict(cache, lengths=lengths + 1)
-    return _lm_logits(params, cfg, x)[:, 0], cache
+    return x
+
+
+def _decode_hybrid(params, cfg, cache, x, lengths, write):
+    """Each group's Mamba2 layers step their conv and ssm states in place;
+    the shared block attends over its group's kv cache through K2."""
+    angles = rope.rope_angles(lengths[:, None], cfg.head_dim, cfg.rope_theta)
+    mamba = _layers(params["mamba_layers"], cfg.num_layers)
+    shared = params["shared"]
+    ae = cfg.attn_every
+    for g in range(cfg.num_layers // ae):
+        for i in range(g * ae, (g + 1) * ae):
+            state = {key: cache[key][i] for key in ("conv", "ssm")}
+            x, new = ssm.mamba2_block(mamba[i], x, head_dim=cfg.ssm_head_dim,
+                                      ssm_state=cfg.ssm_state, cache=state)
+            state["conv"].copy_(new["conv"])
+            state["ssm"].copy_(new["ssm"])
+        xg = x * params["group_gain"][g]
+        h = _self_attention_decode(
+            shared["attn"], cfg, layers.rms_norm(xg, shared["ln1"], cfg.norm_eps),
+            angles, cache["k"][g], cache["v"][g], lengths, _layer_write(write, g),
+            window=cfg.attn_window,
+        )
+        y = xg + h
+        h, _ = _ffn(shared, cfg, layers.rms_norm(y, shared["ln2"], cfg.norm_eps))
+        x = y + h
+    return x
+
+
+def _decode_whisper(params, cfg, cache, x, lengths, write):
+    """K2 over the self-attention cache, then K2 over the encoder's k/v.
+
+    The position embedding is read at the clamped position: a free slot of a
+    continuous batch at or past max_seq gets NaN there, as the JAX package's
+    out-of-range ``take`` gives it (its logits are NaN, its cache write is
+    dropped, the other slots are unaffected)."""
+    B = x.shape[0]
+    S = cache["k"].shape[2]
+    pe = _sinusoid(lengths.clamp(max=S - 1), cfg.d_model)
+    pe = torch.where((lengths < S)[:, None], pe, float("nan")).to(x.dtype)
+    x = x + pe[:, None]
+    enc_len = torch.full((B,), cache["xk"].shape[2], dtype=torch.int32, device=x.device)
+    for i, lp in enumerate(_layers(params["dec_layers"], cfg.num_layers)):
+        h = _self_attention_decode(
+            lp["attn"], cfg, layers.rms_norm(x, lp["ln1"], cfg.norm_eps),
+            None, cache["k"][i], cache["v"][i], lengths, _layer_write(write, i),
+            window=None,
+        )
+        x = x + h
+        q = _q_proj(lp["xattn"], cfg, layers.rms_norm(x, lp["lnx"], cfg.norm_eps))
+        o = decode_attention(q[:, 0], cache["xk"][i], cache["xv"][i], enc_len)
+        x = x + layers.dense(o.reshape(B, 1, -1), lp["xattn"]["wo"])
+        h, _ = _ffn(lp, cfg, layers.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + h
+    return x

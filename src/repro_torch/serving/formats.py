@@ -15,11 +15,14 @@ wrote.
 
 Fence of two faults in the JAX package.  ``save_rsm``'s quantize test takes
 every 2-D/3-D float leaf with ``shape[-2] >= 8``: (F1) the stacked norm
-gains ``layers/ln1`` / ``layers/ln2`` once a model has 8 or more layers, and
-(F2) rwkv6's projections (``tm/w{r,k,v,g,o}``, ``tm/maa_w1``,
-``tm/decay_w{1,2}``, ``cm/w{k,v,r}``), which its model multiplies with ``@``
-and ``.astype``, not ``dense()``; the JAX package's QTensor path then fails in
-``forward``.  Here ``load_rsm(as_qtensor=True)`` returns a ``QTensor`` only
+gains ``layers/ln1`` / ``layers/ln2`` once a model has 8 or more layers
+(whisper's ``enc_layers/ln*`` and ``dec_layers/ln*``, zamba2's
+``mamba_layers/{norm_w,gnorm_w,A_log,D_skip,dt_bias}``), and zamba2's
+``group_gain`` (G, D) once it has 8 or more groups; (F2) rwkv6's projections
+(``tm/w{r,k,v,g,o}``, ``tm/maa_w1``, ``tm/decay_w{1,2}``, ``cm/w{k,v,r}``)
+and zamba2's ``mamba_layers/{in_proj,out_proj}``, which their models
+multiply with ``@`` and ``.astype``, not ``dense()``; the JAX package's
+QTensor path then fails in ``forward``.  Here ``load_rsm(as_qtensor=True)`` returns a ``QTensor`` only
 for the leaves that ``dense()`` consumes (``MATMUL_LEAVES``) and dequantizes
 every other quantized leaf to its ``orig_dtype``, exactly as
 ``as_qtensor=False`` does.  The files stay the same.
@@ -39,10 +42,13 @@ from repro_torch.devices import resolve_device
 from repro_torch.kernels.int8_matmul import quantize_int8
 
 # leaves dense() consumes: the only ones served as QTensor (arctic's dense
-# residual MLP included; the moe router and the 4-D expert leaves are never
-# quantized)
+# residual MLP and whisper's cross attention included; the moe router and the
+# 4-D expert leaves are never quantized).  zamba2's group_gain and Mamba2
+# leaves and whisper's stacked norms end in other names, so they load
+# dequantized.
 MATMUL_LEAVES = frozenset({
     "attn/wq", "attn/wk", "attn/wv", "attn/wo",
+    "xattn/wq", "xattn/wk", "xattn/wv", "xattn/wo",
     "mlp/wi", "mlp/wi_gate", "mlp/wi_up", "mlp/wo",
     "dense_mlp/wi_gate", "dense_mlp/wi_up", "dense_mlp/wo",
 })

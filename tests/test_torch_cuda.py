@@ -601,3 +601,109 @@ def test_spec_session_si2_on_the_card_gives_eager_tokens(gen, tmp_path):
     want = EagerEngine(cfg, engine.params, 64).generate(prompts, 6).tokens
     assert got == {r.rid: want[i].tolist() for i, r in enumerate(wl)}
     assert engine.graphs[4].replays >= 5
+
+
+# -- head dim 80 (zamba2) and whisper's encoder and cross-attention shapes ----------
+
+
+@pytest.mark.parametrize("B,H,K,S,window", [(2, 4, 4, 130, None), (1, 8, 8, 200, 64),
+                                            (2, 6, 2, 96, 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_80(gen, B, H, K, S, window, dtype):
+    """K1 at zamba2's head dim: five 16-wide k-steps on the tensor cores (bf16)
+    and twenty output columns a thread on the CUDA cores (f32)."""
+    mk = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q = mk(B, S, H, 80).transpose(1, 2)
+    k, v = mk(B, S, K, 80).transpose(1, 2), mk(B, S, K, 80).transpose(1, 2)
+    assert k1.plan_call(q, k, v) == ("mma" if dtype == torch.bfloat16 else "fma")
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(got, want, **_tol(dtype))
+    # the last 16 columns (the fifth k-step) carry their share
+    torch.testing.assert_close(got[..., 64:], want[..., 64:], **_tol(dtype))
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("S,window", [(32, None), (1024, 4096), (1024, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_head_dim_80(gen, G, S, window, dtype):
+    """K2 at head dim 80, one split and many: value columns 64-79 (those past
+    the 32-column multiple) are computed, nonzero and right; the merge runs
+    in whole warps at G * 80 threads."""
+    B, K, dh = 4, 32 if S == 1024 else 2, 80
+    q = torch.randn(B, K, G, dh, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, S, K, dh, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    vc = torch.randn(B, S, K, dh, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    lengths = torch.tensor([S, S * 3 // 4 + 1, S // 2 + 1, 5], dtype=torch.int32,
+                           device="cuda")
+    splits = k2.plan(B, K, S, torch.cuda.get_device_properties(0).multi_processor_count).splits
+    assert (splits > 1) == (S == 1024)
+    got = ops.decode_attention(q, kc, vc, lengths, window=window)
+    want = ref.decode_attention_ref(q, kc, vc, lengths, window=window)
+    torch.testing.assert_close(got, want, **_tol(dtype))
+    tail = got[..., 64:].float()
+    assert bool((tail.abs().amax(dim=-1) > 0).all())
+    torch.testing.assert_close(got[..., 64:], want[..., 64:], **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cross_attention_shape(gen, dtype):
+    """whisper's cross attention: 64 decoder queries over 1500 encoder
+    entries, non-causal (Sq != T; the last kv tile is ragged)."""
+    B, H, Sq, T_len, dh = 2, 12, 64, 1500, 64
+    q = torch.randn(B, Sq, H, dh, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    k = torch.randn(B, T_len, H, dh, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    v = torch.randn(B, T_len, H, dh, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=False),
+                               **_tol(dtype))
+    # through the model's entry point, in its (B, S, heads, dh) layout
+    o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False)
+    torch.testing.assert_close(o.transpose(1, 2), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fmt", ["rsm", "rsm_int8"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b-smoke", "whisper-small-smoke"])
+def test_si2_graph_tokens_equal_si1_hybrid_and_audio(gen, arch, fmt):
+    """The captured decode step of zamba2 (Mamba2 layers + the shared block's
+    K2) and whisper (K2 over the self and the cross caches) gives SI1's
+    tokens."""
+    cfg = get_arch(arch)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    if fmt == "rsm_int8":
+        params = quantize_params(params)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    si1 = EagerEngine(cfg, params, 64).generate(prompt, 9)
+    si2_engine = CompiledEngine(cfg, params, 64)
+    si2_engine.warmup(2, 12)
+    si2 = si2_engine.generate(prompt, 9)
+    np.testing.assert_array_equal(si2.tokens, si1.tokens)
+    per_step = si2_engine.graphs[2].launches_per_replay
+    if cfg.family == "hybrid":
+        assert per_step["decode_attention"] == cfg.num_layers // cfg.attn_every
+    else:
+        assert per_step["decode_attention"] == 2 * cfg.num_layers
+    assert (per_step["int8_matmul"] > 0) == (fmt == "rsm_int8")
+
+
+def test_si2_whisper_free_slot_past_max_seq_in_a_graph(gen):
+    """A free whisper slot steps past max_seq inside the captured graph: its
+    position embedding is read at the clamped position (NaN, as the JAX
+    package gives it), its write is dropped, no device assert, and the busy
+    slot's tokens are SI1's."""
+    from repro_torch.serving.request import Request
+
+    cfg = get_arch("whisper-small-smoke")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (8, 16)]
+    wl = lambda: [Request(rid=0, prompt=prompts[0], max_new_tokens=20),  # noqa: E731
+                  Request(rid=1, prompt=prompts[1], max_new_tokens=2)]
+    want = _cb_tokens(EagerEngine(cfg, params, 32), wl(), 2, 32)
+    si2 = CompiledEngine(cfg, params, 32)
+    got = _cb_tokens(si2, wl(), 2, 32)
+    torch.cuda.synchronize()
+    assert got == want and len(got[0]) == 20
+    cache = si2.slot_graphs[0].cache
+    assert int(cache["lengths"][1]) > 32
+    assert not bool(torch.isnan(cache["k"]).any() or torch.isnan(cache["v"]).any())

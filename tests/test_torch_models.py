@@ -165,18 +165,30 @@ def _tokens(cfg, shape, seed=4):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
 
 
+def _batches(cfg, toks, seed=5):
+    """(JAX batch, port batch) of ``toks``; audio adds frames from a numpy seed."""
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    if cfg.family == "audio":
+        jb["frames"], tb["frames"] = _pair(seed, (toks.shape[0], cfg.encoder_seq,
+                                                  cfg.d_model))
+    return jb, tb
+
+
 @pytest.mark.parametrize("arch", ["minitron-4b-smoke", "qwen3-8b-smoke", "yi-9b-smoke",
                                   "mixtral-8x7b-smoke", "arctic-480b-smoke",
-                                  "rwkv6-3b-smoke"])
+                                  "rwkv6-3b-smoke", "zamba2-2.7b-smoke",
+                                  "whisper-small-smoke"])
 def test_forward_prefill_decode_match_reference(arch, twins):
     jcfg, cfg, jp, p = twins(arch)
     toks = _tokens(cfg, (2, 12))
-    out = T.forward(p, cfg, {"tokens": torch.from_numpy(toks)})
-    jout = JT.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    jb, tb = _batches(cfg, toks)
+    out = T.forward(p, cfg, tb)
+    jout = JT.forward(jp, jcfg, jb)
     _close(out["logits"], jout["logits"], 2e-4)
     _close(out["aux_loss"], jout["aux_loss"], 2e-4)
-    jl, jc = JT.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :9])}, max_seq=32)
-    tl, tc = T.prefill(p, cfg, {"tokens": torch.from_numpy(toks[:, :9])}, max_seq=32)
+    jb, tb = _batches(cfg, toks[:, :9])
+    jl, jc = JT.prefill(jp, jcfg, jb, max_seq=32)
+    tl, tc = T.prefill(p, cfg, tb, max_seq=32)
     _close(tl, jl, 2e-4)
     for i in range(9, 12):
         jl, jc = JT.decode_step(jp, jcfg, jc, jnp.asarray(toks[:, i]))
@@ -189,15 +201,17 @@ def test_forward_prefill_decode_match_reference(arch, twins):
 
 
 @pytest.mark.parametrize("arch", ["minitron-4b-smoke", "qwen3-8b-smoke", "yi-9b-smoke",
-                                  "mixtral-8x7b-smoke", "rwkv6-3b-smoke"])
+                                  "mixtral-8x7b-smoke", "rwkv6-3b-smoke",
+                                  "zamba2-2.7b-smoke", "whisper-small-smoke"])
 def test_decode_matches_forward(arch, twins):
     """The serving invariant, as tests/test_arch_smoke.py: stepping the cache
     reproduces full-sequence logits (port only)."""
     _, cfg, _, p = twins(arch)
     B, S = 2, 12
-    tokens = torch.from_numpy(_tokens(cfg, (B, S)))
-    full = T.forward(p, cfg, {"tokens": tokens})["logits"]
-    logits, cache = T.prefill(p, cfg, {"tokens": tokens[:, : S - 3]}, max_seq=32)
+    toks = _tokens(cfg, (B, S))
+    tokens = torch.from_numpy(toks)
+    full = T.forward(p, cfg, _batches(cfg, toks)[1])["logits"]
+    logits, cache = T.prefill(p, cfg, _batches(cfg, toks[:, : S - 3])[1], max_seq=32)
     got = [logits]
     for i in range(S - 3, S):
         logits, cache = T.decode_step(p, cfg, cache, tokens[:, i])
@@ -284,12 +298,6 @@ def test_params_from_numpy_checks_tree():
         T.params_from_numpy(bad, cfg, device="cpu")
     with pytest.raises(ValueError, match="keys"):
         T.params_from_numpy({"embed": tree["embed"]}, cfg, device="cpu")
-
-
-def test_other_families_not_ported():
-    for arch in ("zamba2-2.7b-smoke", "whisper-small-smoke"):
-        with pytest.raises(NotImplementedError):
-            T.init_params(get_arch(arch), device="cpu")
 
 
 # -- moe and rwkv6 units -------------------------------------------------------------

@@ -78,7 +78,7 @@ def test_int8_plan_edges(M, D, N):
     assert k3.plan(M, N, D, torch.float32, SMS).path == "fma"
 
 
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128])
 def test_flash_plan(dh):
     B, S, H, K = 2, 130, 4, 2
     q = torch.zeros(B, S, H, dh, dtype=torch.bfloat16).transpose(1, 2)
@@ -112,6 +112,26 @@ def test_decode_split_plan(B, K, S, sms):
 def test_decode_split_plan_at_the_serve_shape():
     """minitron-4b and mixtral-8x7b decode: B = 4, K = 8, max_seq 1024."""
     assert k2.plan(4, 8, 1024, 132) == k2.Plan(32, 32)    # 1024 blocks of one tile
+
+
+def test_flash_plan_at_zamba2s_layout():
+    """zamba2-2.7b's shared block at prefill: bf16 q/k/v as (B, S, 32, 80)
+    views of its projections (160-byte rows) take the tensor-core path."""
+    cfg = ARCHS["zamba2-2.7b"]
+    B, S, H, dh = 4, 512, cfg.num_heads, cfg.head_dim
+    assert dh == 80 and dh in k1.HEAD_DIMS and dh in k2.HEAD_DIMS
+    q = torch.empty(B, S, H * dh, dtype=torch.bfloat16, device="meta")
+    q = q.view(B, S, H, dh).transpose(1, 2)
+    assert k1.plan(q.dtype, all(s % 8 == 0 for s in k1._bsh(q))) == "mma"
+
+
+@pytest.mark.parametrize("B,K,S,want", [
+    (4, 32, 1024, k2.Plan(8, 128)),    # zamba2-2.7b decode, max_seq 1024
+    (4, 12, 448, k2.Plan(14, 32)),     # whisper-small self attention, max_seq 448
+    (4, 12, 1500, k2.Plan(16, 96)),    # whisper-small cross attention, 1500 frames
+])
+def test_decode_split_plan_at_the_new_serve_shapes(B, K, S, want):
+    assert k2.plan(B, K, S, 132) == want
 
 
 MOE_ARCHS = sorted(name for name, cfg in ARCHS.items() if cfg.num_experts)
