@@ -90,6 +90,21 @@ Phases, each printed as one JSON line:
                 python -m repro_torch.launch.serve at full width (api line)
   formats       rsm_int8 on disk -> load -> the same tokens as in memory;
                 an 8-layer model serves rsm_int8 behind the norm-gain fence
+  train         K1 with its lse and K1's backward against their plain
+                versions at the training shapes (minitron-4b B2 S512;
+                zamba2's dh 80, window 4096; whisper-small's encoder and
+                cross attention), bf16 timed (SDPA forward, and forward +
+                backward, as the yardsticks) and f32; one f32 train step of
+                minitron-4b, qwen3-8b, qwen2-vl-2b, zamba2-2.7b and
+                whisper-small -smoke on the card against the CPU (loss 1e-4,
+                gradients 1e-3, the step's update held to the AdamW rule),
+                mixtral and rwkv6 refusing the card; full-width minitron-4b
+                (32 layers, bf16, B 2, S 512): a warm-up step, then 5 AdamW
+                steps from random weights under the card's energy counter,
+                then one step under torch.profiler by part (train_run line);
+                examples/train_small.py's flow (a ~100M qwen3, 200 steps, the
+                held-out loss, a checkpoint loaded and served through SI2);
+                python -m repro_torch.launch.train at smoke size
 Then the kernel summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Without a CUDA
 device it exits 1 and prints no result.
@@ -128,7 +143,12 @@ KERNEL_SOURCES = {
                 "src/repro/kernels/moe_gmm.py:41"),
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:56"),
+    # the TPU kernel K1 has no backward; this one stands for the custom VJP's rule
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:102"),
 }
+# the kernels every serving path launches (the backward only trains)
+SERVE_KERNELS = tuple(k for k in KERNEL_SOURCES if k != "flash_attention_bwd")
 # the serve phase's archs: (name, layers served or None for all, formats,
 # what differs from phase_serve's defaults)
 SERVE_ARCHS = (
@@ -196,19 +216,22 @@ def time_ms(fn, iters: int = 10, graph: bool = False) -> float:
     return times[len(times) // 2]
 
 
-def timed(case: dict, fn, plain, library, nbytes: float, flops: float) -> None:
+def timed(case: dict, fn, plain, library, nbytes: float, flops: float,
+          graph_library: bool = True) -> None:
     """Times of one case: the kernel's ``ms`` (eager) and ``graph_ms`` (CUDA-graph
-    replay), the plain version's (eager), the library call's both ways, the
-    bound, and the factors ms / library_ms and graph_ms / library_graph_ms."""
+    replay), the plain version's (eager), the library call's both ways (only
+    eagerly without ``graph_library``: an autograd call), the bound, and the
+    factors ms / library_ms and graph_ms / library_graph_ms."""
     case["ms"] = time_ms(fn)
     case["graph_ms"] = time_ms(fn, graph=True)
     case["plain_ms"] = time_ms(plain, 3)
     case["library_ms"] = case["library_graph_ms"] = None
     if library is not None:
         case["library_ms"] = time_ms(library)
-        case["library_graph_ms"] = time_ms(library, graph=True)
         case["factor"] = case["ms"] / case["library_ms"]
-        case["graph_factor"] = case["graph_ms"] / case["library_graph_ms"]
+        if graph_library:
+            case["library_graph_ms"] = time_ms(library, graph=True)
+            case["graph_factor"] = case["graph_ms"] / case["library_graph_ms"]
     case["bound_ms"], case["bound_by"] = bound(nbytes, flops, case["dtype"])
 
 
@@ -222,8 +245,10 @@ def timing_floor() -> dict:
 
 
 def device_us(fns: dict, iters: int = 10) -> dict:
-    """torch.profiler's device time per call of each kernel that ``fns``
-    launch, L2 flushed before each call (the flush's fill kernel left out)."""
+    """torch.profiler's device time of each kernel that ``fns`` launch, per
+    call of its fn: the kernel's total over ``iters`` calls divided by
+    ``iters`` (a kernel a call launches twice counts twice), L2 flushed
+    before each call (the flush's fill kernel left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -237,14 +262,15 @@ def device_us(fns: dict, iters: int = 10) -> dict:
                 flush.zero_()
                 fn()
         torch.cuda.synchronize()
-    return {e.key[:80]: e.self_device_time_total / e.count for e in prof.key_averages()
+    return {e.key[:80]: e.self_device_time_total / iters for e in prof.key_averages()
             if e.self_device_time_total > 0 and "elementwise" not in e.key
             and "fill" not in e.key.lower()}
 
 
 # the port's kernels by their CUDA function names (kernels/csrc/*.cu)
 PORT_KERNEL_PREFIX = {"flash_attention": "flash_", "decode_attention": "decode_",
-                      "int8_matmul": "int8_", "moe_gmm": "gmm_", "rwkv6_scan": "wkv_"}
+                      "int8_matmul": "int8_", "moe_gmm": "gmm_", "rwkv6_scan": "wkv_",
+                      "flash_attention_bwd": "attn_bwd_"}
 
 
 def port_kernel(key: str):
@@ -324,6 +350,14 @@ def phase_build() -> dict:
            "gpu": smi()}
     emit(out)
     return out
+
+
+def check_grad(name: str, got, want, atol: float, rtol: float) -> float:
+    """check_close with ``atol`` scaled down to the largest |want| where that
+    is below 1: attention gradients can be ~1e-3 (whisper's cross attention,
+    T 1500), where a fixed atol would pass zeros."""
+    return check_close(name, got, want, atol * min(1.0, float(want.float().abs().max())),
+                       rtol)
 
 
 def _tol(dtype):
@@ -606,9 +640,9 @@ def _rwkv6_scan_cases(seed: int, randn) -> list:
 
 def emit_case(kernel: str, case: dict) -> None:
     """One kernel case on stderr as it completes: path, error, times, factor."""
-    keys = ("shape", "window", "group_sizes", "dtype", "path", "splits", "plan",
+    keys = ("arch", "shape", "window", "group_sizes", "dtype", "path", "splits", "plan",
             "max_abs_err", "ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms", "factor",
-            "graph_factor", "device_us")
+            "graph_factor", "device_us", "kernel_device_ms", "library_device_ms")
     print(f"[{kernel}] " + json.dumps({k: case[k] for k in keys if k in case}),
           file=sys.stderr, flush=True)
 
@@ -776,8 +810,8 @@ def _launches_per_pass(cfg, tree) -> tuple:
     int8 = L * _qtensor_leaves(tree["layers"])
     moe_gmm = 3 * L if cfg.is_moe else 0          # gate, up, down per layer
     rwkv6 = L if cfg.family == "ssm" else 0
-    prefill = {"flash_attention": L if attn else 0, "decode_attention": 0,
-               "int8_matmul": int8, "moe_gmm": moe_gmm, "rwkv6_scan": rwkv6}
+    prefill = dict(zero, flash_attention=L if attn else 0, int8_matmul=int8,
+                   moe_gmm=moe_gmm, rwkv6_scan=rwkv6)
     step = dict(prefill, flash_attention=0, decode_attention=L if attn else 0)
     return prefill, step
 
@@ -924,7 +958,7 @@ def _mamba2_profile(cfg, params, batch: int, prompt_len: int, prefill: dict) -> 
         return torch.rand(shape, generator=g, device="cuda")
 
     x = (rand(B, T, cfg.d_model) * 2 - 1).to(cfg.torch_dtype)
-    layer = transformer._layer(params["mamba_layers"], 0)
+    layer = transformer._layers(params["mamba_layers"], 1)[0]
     xh, Bt, Ct, dt = rand(B, T, nh, hd) - 0.5, rand(B, T, S) - 0.5, rand(B, T, S) - 0.5, rand(B, T, nh)
     h0 = torch.zeros((B, nh, hd, S), device="cuda")
     with torch.no_grad():
@@ -1926,7 +1960,7 @@ def _api_smoke_f32(seed: int) -> dict:
     if tokens["SI2"]["minitron_int8"] != {rid0 + j: eager[j].tolist() for j in range(8)}:
         raise AssertionError("api f32 smoke: minitron_int8's SI2 tokens differ from eager")
     total = {k: out["SI2"]["launches"][k] + out["SI2"]["graph_replay_launches"][k]
-             for k in KERNEL_SOURCES}
+             for k in SERVE_KERNELS}
     if not all(total.values()):
         raise AssertionError(f"api f32 smoke: a kernel never launched in run() ({total})")
     out.update(tokens_si2_equal_si1=True, int8_tokens_equal_eager=True)
@@ -2215,13 +2249,422 @@ def phase_api(seed: int) -> dict:
     return out
 
 
+# -- the train phase ------------------------------------------------------------------
+
+# K1 with lse and K1's backward at the training shapes: (B, H, K, Sq, T, dh,
+# causal, window, what)
+TRAIN_ATTN_CASES = (
+    (2, 24, 8, 512, 512, 128, True, None, "minitron-4b"),
+    (2, 32, 32, 512, 512, 80, True, 4096, "zamba2-2.7b shared block"),
+    (2, 12, 12, 1500, 1500, 64, True, None, "whisper-small encoder"),
+    (2, 12, 12, 64, 1500, 64, False, None, "whisper-small cross attention"))
+# the families whose every kernel has a backward: trained card against CPU
+TRAIN_SMOKE_ARCHS = ("minitron-4b-smoke", "qwen3-8b-smoke", "qwen2-vl-2b-smoke",
+                     "zamba2-2.7b-smoke", "whisper-small-smoke")
+TRAIN_LOSS_ATOL, TRAIN_GRAD_ATOL = 1e-4, 1e-3
+TRAIN_UPDATE_ATOL = 1e-6   # an f32 parameter after one step; the step moves it ~lr (3e-4)
+# torch.profiler's kernels of a train step by part (kernel-name fragments)
+TRAIN_PARTS = (("k1_fwd", ("namespace)::flash_",)), ("k1_bwd", ("namespace)::attn_bwd_",)),
+               ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+               ("loss", ("softmax", "SoftMax", "gather", "nll")))
+
+
+def _train_attention_cases(seed: int) -> tuple:
+    """K1 with lse and K1's backward against their plain versions at the
+    training shapes, bf16 (timed) and f32; SDPA forward and forward +
+    backward are the library yardsticks."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k1
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 20)
+    fwd_cases, bwd_cases = [], []
+    for (B, H, K, S, T, dh, causal, window, what) in TRAIN_ATTN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            mk = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+            q, k, v = (mk(B, S, H, dh).transpose(1, 2), mk(B, T, K, dh).transpose(1, 2),
+                       mk(B, T, K, dh).transpose(1, 2))
+            do = mk(B, S, H, dh).transpose(1, 2)
+            kw = dict(causal=causal, window=window)
+            tag = f"{what} {dtype}"
+            o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+            want_o, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+            err = max(check_close(f"flash_attention {tag} out", o, want_o, *_tol(dtype)),
+                      check_close(f"flash_attention {tag} lse", lse, want_lse, *_tol(dtype)))
+            got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            berr = max(check_grad(f"flash_attention_bwd {tag} {n}", a, b, *_tol(dtype))
+                       for n, a, b in zip(("dq", "dk", "dv"), got, want))
+            again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd {tag}: two calls differ")
+            base = {"shape": [B, H, K, S, dh], "window": window, "dtype": str(dtype)[6:],
+                    "arch": what}
+            if (T, causal) != (S, True):
+                base.update(kv_len=T, causal=causal)
+            fwd = dict(base, path=k1.plan_call(q, k, v), lse=True, max_abs_err=err)
+            bwd = dict(base, max_abs_err=berr, bit_identical=True)
+            if dtype == torch.bfloat16:
+                es = q.element_size()
+                pairs = B * H * (S * (S + 1) / 2 if causal else S * T)   # live (q, k) pairs
+                io = (2 * B * S * H * dh + 2 * B * T * K * dh) * es + 4 * B * H * S
+                timed(fwd, lambda: ops.flash_attention(q, k, v, return_lse=True, **kw),
+                      lambda: ref.flash_attention_ref(q, k, v, return_lse=True, **kw),
+                      lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                             enable_gqa=True),
+                      io, 4 * dh * pairs)
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+
+                def sdpa_fwd_bwd():
+                    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                                         enable_gqa=True)
+                    return torch.autograd.grad(out, (ql, kl, vl), do)
+
+                # reads q, k, v, o, do, lse; writes dq, dk, dv; 5 products
+                nbytes = (3 * B * S * H * dh + 2 * B * T * K * dh) * es + 4 * B * H * S \
+                    + (B * S * H * dh + 2 * B * T * K * dh) * es
+                kernel = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+                timed(bwd, kernel, lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                      sdpa_fwd_bwd, nbytes, 5 * 2 * dh * pairs, graph_library=False)
+                # SDPA's autograd call is not captured in a graph: its device
+                # time, and the kernel's, from torch.profiler instead
+                us = device_us({"kernel": kernel, "library": sdpa_fwd_bwd})
+                bwd["device_us"] = us
+                bwd["kernel_device_ms"] = sum(v for k, v in us.items() if "attn_bwd_" in k) / 1e3
+                bwd["library_device_ms"] = sum(v for k, v in us.items()
+                                               if "attn_bwd_" not in k) / 1e3
+            emit_case("flash_attention", fwd)
+            emit_case("flash_attention_bwd", bwd)
+            fwd_cases.append(fwd)
+            bwd_cases.append(bwd)
+    return fwd_cases, bwd_cases
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().float().numpy()
+
+
+def _train_batch(cfg, seed: int, batch: int, seq: int) -> dict:
+    import numpy as np
+
+    from repro_torch.training.data import DataConfig, SyntheticLM
+
+    out = next(SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=seed)).batches())
+    if cfg.family == "audio":
+        rng = np.random.default_rng(seed)
+        out["frames"] = rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
+def _first_update_err(opt_cfg, lr: float, before, params, m, v) -> float:
+    """Largest |p - want| over the leaves after one AdamW step from zero
+    moments, ``want`` computed on the CPU from the parameters before the step
+    (numpy) and the step's own m and v: a missing or sign-flipped update is
+    off by about lr."""
+    import torch
+
+    b1c, b2c = 1 - opt_cfg.b1, 1 - opt_cfg.b2
+    err = 0.0
+    for p0, p, m1, v1 in zip(before, params, m, v):
+        p0, m1, v1 = torch.from_numpy(p0), m1.cpu(), v1.cpu()
+        delta = (m1 / b1c) / (torch.sqrt(v1 / b2c) + opt_cfg.eps)
+        if p0.ndim >= 2:
+            delta = delta + opt_cfg.weight_decay * p0
+        err = max(err, max_err(p.cpu(), p0 - lr * delta))
+    return err
+
+
+def _train_smoke(seed: int) -> dict:
+    """One f32 train step of each smoke arch whose kernels all have a
+    backward, on the card and on the CPU from the same numpy weights and
+    batch; moe and rwkv6 must refuse to train on the card."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training import optim, trainer
+
+    opt_cfg = optim.AdamWConfig(warmup_steps=1, total_steps=10)
+    out = {"archs": {}, "loss_atol": TRAIN_LOSS_ATOL, "grad_atol": TRAIN_GRAD_ATOL,
+           "update_atol": TRAIN_UPDATE_ATOL}
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg = get_arch(arch)
+        tree = _numpy_tree(transformer.init_params(cfg, seed, device="cpu"))
+        batch = _train_batch(cfg, seed, 2, 32)
+        res = {}
+        for device in ("cpu", "cuda"):
+            p = transformer.params_from_numpy(tree, cfg, device=device)
+            before = ops.launch_counts()
+            loss, _, grads = trainer.loss_and_grads(p, cfg, trainer.batch_to(batch, device))
+            launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
+            step = trainer.make_train_step(cfg, opt_cfg, device=device)
+            p, opt, stats = step(p, optim.init_opt_state(p), batch)
+            res[device] = (float(loss), optim.tree_leaves(grads), float(stats["loss"]),
+                           [optim.tree_leaves(t) for t in (p, opt["m"], opt["v"])],
+                           launched, float(stats["lr"]))
+        loss_err = abs(res["cuda"][0] - res["cpu"][0])
+        step_loss_err = abs(res["cuda"][2] - res["cpu"][2])
+        grad_err = max(max_err(a.cpu(), b) for a, b in zip(res["cuda"][1], res["cpu"][1]))
+        # the step's own (clipped) gradients, m / (1 - b1) after one step
+        b1c = 1 - opt_cfg.b1
+        step_grad_err = max(max_err(a.cpu() / b1c, b / b1c)
+                            for a, b in zip(res["cuda"][3][1], res["cpu"][3][1]))
+        update_err = _first_update_err(opt_cfg, res["cuda"][5],
+                                       optim.tree_leaves(tree), *res["cuda"][3])
+        launched = res["cuda"][4]
+        if max(loss_err, step_loss_err) > TRAIN_LOSS_ATOL \
+                or max(grad_err, step_grad_err) > TRAIN_GRAD_ATOL \
+                or update_err > TRAIN_UPDATE_ATOL:
+            raise AssertionError(f"train {arch}: card vs CPU loss {loss_err} "
+                                 f"{step_loss_err}, grads {grad_err} {step_grad_err}; "
+                                 f"update {update_err}")
+        if not (launched["flash_attention"] and launched["flash_attention_bwd"]):
+            raise AssertionError(f"train {arch}: kernels launched {launched}")
+        out["archs"][arch] = {"loss": res["cuda"][0], "loss_err": loss_err,
+                              "step_loss_err": step_loss_err, "grad_max_abs_err": grad_err,
+                              "step_grad_max_abs_err": step_grad_err,
+                              "update_max_abs_err": update_err, "launches": launched}
+    out["refused"] = {}
+    for arch in ("mixtral-8x7b-smoke", "rwkv6-3b-smoke"):
+        try:
+            trainer.make_train_step(get_arch(arch), opt_cfg)
+        except NotImplementedError as e:
+            out["refused"][arch] = str(e)
+        else:
+            raise AssertionError(f"train {arch}: make_train_step did not refuse the card")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_parts(fn) -> tuple:
+    """``fn()`` under torch.profiler: (its result, device microseconds summed
+    by TRAIN_PARTS, the rest as ``other``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    parts = dict.fromkeys([p for p, _ in TRAIN_PARTS] + ["other"], 0.0)
+    other = {}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        part = next((p for p, frags in TRAIN_PARTS if any(f in e.key for f in frags)),
+                    "other")
+        parts[part] += us
+        if part == "other":
+            other[e.key[:90]] = other.get(e.key[:90], 0.0) + us
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:8])
+    print(f"[train profile] {json.dumps(parts)} top other {json.dumps(top)}",
+          file=sys.stderr, flush=True)
+    return result, parts
+
+
+def _train_full_width(seed: int, card, batch: int = 2, seq: int = 512,
+                      steps: int = 5) -> dict:
+    """Full-width minitron-4b (32 layers, bf16) from random weights: one
+    warm-up train step, then ``steps`` on SyntheticLM data, timed on the host
+    clock after a synchronise, under the card's energy counter (ms/step,
+    tokens/s and J/token are over these ``steps``); then one more step under
+    torch.profiler, split into forward + backward and the AdamW update."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training import optim, trainer
+    from repro_torch.training.data import DataConfig, SyntheticLM
+
+    cfg = get_arch("minitron-4b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed, device="cuda")
+    opt_state = optim.init_opt_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = trainer.make_train_step(cfg, optim.AdamWConfig(warmup_steps=1,
+                                                             total_steps=steps),
+                                      device="cuda")
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=seed)).batches()
+    batches = [next(data) for _ in range(steps + 2)]   # data is set-up, made first
+    probe = params["layers"]["attn"]["wq"][0, :8, :8].clone()
+    losses, step_ms = [], []
+
+    def run(bs):
+        for b in bs:
+            t = time.perf_counter()
+            _, _, stats = step_fn(params, opt_state, b)
+            losses.append(float(stats["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+
+    run(batches[:1])   # warm-up (cuBLAS, the allocator), outside the energy window
+    ops.reset_launch_counts()
+    _, energy = card.measure(lambda: run(batches[1:steps + 1]))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = steps * batch * seq
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"full-width train: losses {losses}")
+    if torch.equal(probe, params["layers"]["attn"]["wq"][0, :8, :8]):
+        raise AssertionError("full-width train: the parameters did not change")
+    if launches["flash_attention"] != steps * cfg.num_layers or \
+            launches["flash_attention_bwd"] != steps * cfg.num_layers:
+        raise AssertionError(f"full-width train: launches {launches}")
+    tb = trainer.batch_to(batches[steps + 1], "cuda")
+    (_, _, grads), fb = _profile_parts(lambda: trainer.loss_and_grads(params, cfg, tb))
+    _, upd = _profile_parts(lambda: optim.adamw_update(
+        optim.AdamWConfig(warmup_steps=1, total_steps=steps), params, grads, opt_state))
+    breakdown = dict(fb, adamw=sum(upd.values()))
+    total = sum(breakdown.values())
+    steady = step_ms[1:]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": str(cfg.torch_dtype)[6:],
+           "batch": batch, "seq": seq, "steps": steps, "warmup_steps": 1, "depth_cut": None,
+           "init_s": init_s,
+           "params": sum(t.numel() for t in optim.tree_leaves(params)),
+           "losses": losses, "step_ms": step_ms,
+           "ms_per_step": sum(steady) / len(steady),
+           "tokens_per_s": batch * seq / (sum(steady) / len(steady) / 1e3),
+           "max_memory_allocated": peak, "card_j": energy["j"], "card_s": energy["s"],
+           "card_w": energy["w"], "card_j_per_token": energy["j"] / tokens,
+           "energy_method": card.method, "launches": launches,
+           "device_us": breakdown, "device_us_total": total,
+           "device_share": {k: v / total for k, v in breakdown.items()}}
+    del params, opt_state, grads, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_small(seed: int, steps: int = 200) -> dict:
+    """examples/train_small.py's flow on the card: the ~100M qwen3 variant
+    through train_loop, the held-out loss before and after, a checkpoint
+    saved and loaded into a fresh tree, and SI2 serving both trees."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.core.engines import CompiledEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training import checkpoint, trainer
+    from repro_torch.training.data import DataConfig, SyntheticLM, eval_batches
+    from repro_torch.training.optim import AdamWConfig
+
+    cfg = dataclasses.replace(
+        smoke_variant(get_arch("qwen3-8b")), name="qwen3-100m", num_layers=8, d_model=512,
+        num_heads=8, num_kv_heads=2, head_dim=64, d_ff=2048, vocab_size=32768)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, batch_size=8, seed=seed)
+    ev = eval_batches(dcfg, 2)
+
+    def eval_loss(p):
+        with torch.no_grad():
+            return float(np.mean([float(trainer.lm_loss(p, cfg, trainer.batch_to(b, "cuda"))[0])
+                                  for b in ev]))
+
+    params = transformer.init_params(cfg, seed, device="cuda")
+    before = eval_loss(params)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = trainer.train_loop(cfg, AdamWConfig(lr=6e-4, warmup_steps=20, total_steps=steps),
+                             SyntheticLM(dcfg).batches(), steps, params=params,
+                             log_every=max(steps // 10, 1), device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    after = eval_loss(res["params"])
+    if not before - after >= 0.2:
+        raise AssertionError(f"train_small: held-out loss {before} -> {after}")
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = os.path.join(tmp, f"step_{steps}")
+        nbytes = checkpoint.save_checkpoint(path, res["params"], res["opt_state"], steps)
+        loaded, opt, meta = checkpoint.load_checkpoint(path, res["params"], res["opt_state"],
+                                                       device="cuda")
+    if meta["step"] != steps or opt["step"] != steps:
+        raise AssertionError(f"train_small: checkpoint step {meta}")
+    prompts = ev[0]["tokens"][:4, :16]
+    want = CompiledEngine(cfg, res["params"], 160, device="cuda").generate(prompts, 8).tokens
+    got = CompiledEngine(cfg, loaded, 160, device="cuda").generate(prompts, 8).tokens
+    if not np.array_equal(got, want):
+        raise AssertionError("train_small: the loaded checkpoint serves other tokens")
+    return {"arch": cfg.name, "params": cfg.param_count(), "steps": steps, "seq": 128,
+            "batch": 8, "seconds": seconds, "eval_loss_before": before,
+            "eval_loss_after": after, "history": [(h["step"], h["loss"])
+                                                  for h in res["history"]],
+            "checkpoint_bytes": nbytes, "served_tokens_equal": True,
+            "served_tokens": got.tolist(), "launches": launches}
+
+
+def _train_cli() -> dict:
+    """python -m repro_torch.launch.train at smoke size, on the card."""
+    import torch
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                           "minitron-4b", "--smoke", "--steps", "5"],
+                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or not lines[-1].startswith("done:") or \
+            not lines[0].endswith(f"device={torch.cuda.get_device_name(0)}"):
+        raise AssertionError(f"launch.train exit {proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr[-3000:]}")
+    print("[launch.train]\n" + proc.stdout, file=sys.stderr, flush=True)
+    return {"seconds": seconds, "stdout": lines}
+
+
+def phase_train(seed: int) -> dict:
+    """K1 with lse and K1's backward against their plain versions; smoke train
+    steps card vs CPU; full-width minitron-4b; the train_small flow; the CLI."""
+    t_phase = time.perf_counter()
+    out = {"phase": "train"}
+    out["flash_attention_lse"], out["flash_attention_bwd"] = _train_attention_cases(seed)
+    out["smoke"] = _train_smoke(seed)
+    card = CardEnergy()
+    try:
+        out["full_width"] = _train_full_width(seed, card)
+    finally:
+        card.close()
+    emit(dict(out["full_width"], phase="train_run"))
+    out["train_small"] = _train_small(seed)
+    out["cli"] = _train_cli()
+    # the main path's launches: the full-width run's and train_small's loops
+    out["launches"] = {k: out["full_width"]["launches"][k] + out["train_small"]["launches"][k]
+                       for k in out["full_width"]["launches"]}
+    out["graph_replay_launches"] = dict.fromkeys(out["launches"], 0)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({k: v for k, v in out.items() if k not in ("flash_attention_lse",
+                                                    "flash_attention_bwd")})
+    return out
+
+
 def kernel_line(kernel_cases: dict, serve: dict, schedule: dict, fleet: dict,
-                api: dict) -> dict:
+                api: dict, train: dict) -> dict:
     """One entry per kernel, its numbers at one main-path shape (in bf16; K5
-    in f32, as the model feeds it); every timed case under timed_cases.
-    ``launches`` sums the serve, schedule, fleet and api paths' counts (eager)."""
-    paths = {"serve": serve, "schedule": schedule, "fleet": fleet, "api": api}
+    in f32, as the model feeds it; K1's backward at minitron-4b's training
+    shape); every timed case under timed_cases.  ``launches`` sums the serve,
+    schedule, fleet, api and train paths' counts (eager)."""
+    paths = {"serve": serve, "schedule": schedule, "fleet": fleet, "api": api,
+             "train": train}
     main_shape = {"flash_attention": [4, 24, 8, 512, 128],
+                  "flash_attention_bwd": [2, 24, 8, 512, 128],
                   "decode_attention": [4, 8, 3, 1024, 128],
                   "int8_matmul": [4, 3072, 9216],
                   "moe_gmm": [8, 8, 4096, 14336],
@@ -2276,7 +2719,10 @@ def main(argv=None) -> int:
     fleet = phase_fleet(args.seed)
     api = phase_api(args.seed)
     phase_formats(args.seed)
-    emit(kernel_line(kernels, serve, schedule, fleet, api))
+    train = phase_train(args.seed)
+    kernels["flash_attention"] = kernels["flash_attention"] + train["flash_attention_lse"]
+    kernels["flash_attention_bwd"] = train["flash_attention_bwd"]
+    emit(kernel_line(kernels, serve, schedule, fleet, api, train))
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

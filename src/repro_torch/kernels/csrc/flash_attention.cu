@@ -66,8 +66,8 @@ constexpr int smem_floats() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int K,
-                 int Sq, int T_len, Strides sq, Strides sk, Strides sv,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                 int H, int K, int Sq, int T_len, Strides sq, Strides sk, Strides sv,
                  Strides so, int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                        // [BQ][DH+1]
@@ -171,12 +171,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + b * so.b + q_pos * so.s + h * so.h;
 #pragma unroll
     for (int t = 0; t < NT; ++t) orow[c + 4 * t] = from_f32<T>(acc[t] * inv);
+    // the natural-log row log-sum-exp the backward reads; a row with every
+    // key masked keeps m = -1e30, as the JAX package's
+    if (lse != nullptr && c == 0)
+      lse[((long long)b * H + h) * Sq + q_pos] = m + logf(fmaxf(l, 1e-20f));
   }
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int K, int Sq, int T_len, Strides sq, Strides sk, Strides sv,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+           int H, int K, int Sq, int T_len, Strides sq, Strides sk, Strides sv,
            Strides so, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<DH>() * sizeof(float);
   static bool configured = false;  // one attribute call per instantiation
@@ -190,20 +194,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale);
+      static_cast<T*>(o), lse, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
+int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o, float* lse,
                 int B, int H, int K, int Sq, int T_len, Strides sq, Strides sk,
                 Strides sv, Strides so, int causal, int window, float scale,
                 cudaStream_t s) {
   switch (dh) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
-    case 80: return launch<T, 80>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+    case 80: return launch<T, 80>(q, k, v, o, lse, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -283,9 +287,9 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 template <int DH>
 __global__ void __launch_bounds__(M_THREADS)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
-                 int K, int Sq, int T_len, Strides sq, Strides sk, Strides sv, Strides so,
-                 int causal, int window, float scale_log2) {
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int H, int K, int Sq, int T_len, Strides sq,
+                 Strides sk, Strides sv, Strides so, int causal, int window, float scale_log2) {
   constexpr int STRIDE = mma_stride<DH>();
   constexpr int TILE = MQ * STRIDE;
   constexpr int NT = MKV / 8;   // 8-column tiles of S
@@ -450,6 +454,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const float inv = 1.f / fmaxf(l, 1e-20f);
     const int qp = row_lo + r * 8;
     if (qp >= Sq) continue;
+    // m_run is in log2 units of the scaled score: the natural-log lse is
+    // (m + log2 l) ln 2.  A row with every key masked (l = 0, m = -inf)
+    // gets the JAX package's -1e30, not -inf
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((long long)b * H + h) * Sq + qp] =
+          l > 0.f ? (m_run[r] + log2f(l)) * 0.6931471805599453f : REPRO_NEG_INF;
     __nv_bfloat16* orow = o + b * so.b + (long long)qp * so.s + h * so.h;
 #pragma unroll
     for (int t = 0; t < OT; ++t)
@@ -459,9 +469,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 }
 
 template <int DH>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
-               int Sq, int T_len, Strides sq, Strides sk, Strides sv, Strides so, int causal,
-               int window, float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+               int K, int Sq, int T_len, Strides sq, Strides sk, Strides sv, Strides so,
+               int causal, int window, float scale, cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes<DH>();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
@@ -473,8 +483,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
   dim3 grid(H, B, (Sq + MQ - 1) / MQ);
   flash_mma_kernel<DH><<<grid, M_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, K, Sq, T_len,
-      sq, sk, sv, so, causal, window, scale * 1.4426950408889634f);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, K, Sq,
+      T_len, sq, sk, sv, so, causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -485,7 +495,9 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
 #define FLASH_PATH_MMA 1
 
 // Strides are in elements, for the (b, s, head) axes of each tensor; the
-// last axis is contiguous.  window < 0 means no window.
+// last axis is contiguous.  window < 0 means no window.  lse, when not null,
+// receives the row log-sum-exp, (B, H, Sq) float32 contiguous; null leaves
+// the serving call as it was.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int path, int B,
     int H, int K, int Sq, int T_len, int dh,
@@ -493,21 +505,22 @@ extern "C" int flash_attention_fwd(
     long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh,
     long long sob, long long sos, long long soh,
-    int causal, int window, float scale, void* stream) {
+    int causal, int window, float scale, void* lse_out, void* stream) {
+  float* lse = static_cast<float*>(lse_out);
   const Strides sq{sqb, sqs, sqh}, sk{skb, sks, skh}, sv{svb, svs, svh}, so{sob, sos, soh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == FLASH_PATH_MMA) {
     if (dtype != REPRO_BF16) return static_cast<int>(cudaErrorInvalidValue);
     switch (dh) {
-      case 32: return launch_mma<32>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
-      case 64: return launch_mma<64>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
-      case 80: return launch_mma<80>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
-      case 128: return launch_mma<128>(q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+      case 32: return launch_mma<32>(q, k, v, o, lse, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+      case 64: return launch_mma<64>(q, k, v, o, lse, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+      case 80: return launch_mma<80>(q, k, v, o, lse, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+      case 128: return launch_mma<128>(q, k, v, o, lse, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   if (path != FLASH_PATH_FMA) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == REPRO_F32)
-    return dispatch_dh<float>(dh, q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
-  return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+    return dispatch_dh<float>(dh, q, k, v, o, lse, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
+  return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, lse, B, H, K, Sq, T_len, sq, sk, sv, so, causal, window, scale, s);
 }

@@ -13,6 +13,10 @@ layout the 16-byte copies can take (every (b, s, head) stride a multiple of
 FlashAttention-2 kernel on the tensor cores; float32 always runs "fma", true
 float32 on the CUDA cores for the 2e-4 parity tests, as does bf16 in any
 other layout.
+
+``return_lse`` also returns the row log-sum-exp of the scaled, masked
+scores, (B, H, Sq) float32 in natural-log units, which the backward
+(``flash_attention_bwd``) reads; without it the kernel writes none.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from repro_torch.kernels import build, ref
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {"flash_attention_fwd": (
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I] + [_L] * 12
-    + [_I, _I, _F, _P], ctypes.c_int)}
+    + [_I, _I, _F, _P, _P], ctypes.c_int)}
 HEAD_DIMS = (32, 64, 80, 128)
 PATHS = {"fma": 0, "mma": 1}   # csrc/flash_attention.cu FLASH_PATH_*
 
@@ -52,10 +56,12 @@ def plan_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None) -> torch.Tensor:
-    """q: (B, H, Sq, dh); k, v: (B, K, T, dh). Returns (B, H, Sq, dh)."""
+                    causal: bool = True, window=None, return_lse: bool = False):
+    """q: (B, H, Sq, dh); k, v: (B, K, T, dh). Returns (B, H, Sq, dh), and
+    with ``return_lse`` also the lse (B, H, Sq) float32."""
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -75,6 +81,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     path = plan_call(q, k, v)
     lib = build.library("flash_attention", _SIGNATURES)
     code = lib.flash_attention_fwd(
@@ -82,10 +90,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         build.DTYPE_CODES[q.dtype], PATHS[path], B, H, K, Sq, T, dh,
         *_bsh(q), *_bsh(k), *_bsh(v), *_bsh(out),
         int(causal), -1 if window is None else int(window), dh ** -0.5,
-        build.current_stream())
+        None if lse is None else lse.data_ptr(), build.current_stream())
     build.check(lib, code, f"flash_attention ({path})")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

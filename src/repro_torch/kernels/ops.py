@@ -16,18 +16,29 @@ from typing import Dict
 
 from repro_torch.kernels.decode_attention import decode_attention as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8
 from repro_torch.kernels.int8_matmul import quantize_int8  # noqa: F401 (re-export)
 from repro_torch.kernels.moe_gmm import moe_gmm as _gmm
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6
 
-_WRAPPERS = {"flash_attention": _flash, "decode_attention": _decode,
-             "int8_matmul": _int8, "moe_gmm": _gmm, "rwkv6_scan": _rwkv6}
+_WRAPPERS = {"flash_attention": _flash, "flash_attention_bwd": _flash_bwd,
+             "decode_attention": _decode, "int8_matmul": _int8, "moe_gmm": _gmm,
+             "rwkv6_scan": _rwkv6}
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, block_q=128,
-                    block_kv=128):
-    return _flash(q, k, v, causal=causal, window=window)
+                    block_kv=128, return_lse=False):
+    """``return_lse``, beyond the JAX package's arguments: also return the
+    row log-sum-exp (B, H, Sq) f32 that ``flash_attention_bwd`` reads."""
+    return _flash(q, k, v, causal=causal, window=window, return_lse=return_lse)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None):
+    """(dq, dk, dv) of ``flash_attention`` from its output ``o`` and ``lse``;
+    the JAX package has no kernel of its own here (its attention backward is
+    the custom VJP's rule, ``models/attention.py``)."""
+    return _flash_bwd(q, k, v, o, lse, do, causal=causal, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window=None, block_s=512):

@@ -12,24 +12,65 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=None):
-    """q: (B, H, Sq, dh); k/v: (B, K, T, dh)."""
+def _flash_mask(Sq: int, T: int, causal: bool, window, device):
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((Sq, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, return_lse=False):
+    """q: (B, H, Sq, dh); k/v: (B, K, T, dh).
+
+    With ``return_lse`` also the row log-sum-exp of the scaled, masked
+    scores in float32, (B, H, Sq): what the backward reads.  It equals the
+    JAX package's ``m + log(max(l, 1e-20))`` (``models/attention.py``); a
+    row with every key masked gets -1e30 from both.
+    """
     B, H, Sq, dh = q.shape
     K, T = k.shape[1], k.shape[2]
     G = H // K
     qf = q.float().reshape(B, K, G, Sq, dh) * dh ** -0.5
     s = torch.einsum("bkgqd,bktd->bkgqt", qf, k.float())
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((Sq, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window is not None:
-        mask &= k_pos > q_pos - window
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(_flash_mask(Sq, T, causal, window, q.device), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
-    return o.reshape(B, H, Sq, dh).to(q.dtype)
+    o = o.reshape(B, H, Sq, dh).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None):
+    """The gradients of ``flash_attention_ref`` from its output and lse.
+
+    q, o, do: (B, H, Sq, dh); k, v: (B, K, T, dh); lse: (B, H, Sq) f32.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes; dk and dv sum over the
+    G query heads of each kv head.  The arithmetic of the JAX package's
+    ``_attention_bwd_rule``: delta = sum(do * o), p = exp(s - lse) masked,
+    dv = p^T do, ds = p (dp - delta) scale, dq = ds k, dk = ds^T q.
+    """
+    B, H, Sq, dh = q.shape
+    K, T = k.shape[1], k.shape[2]
+    G = H // K
+    scale = dh ** -0.5
+    qf = q.float().reshape(B, K, G, Sq, dh)
+    dof = do.float().reshape(B, K, G, Sq, dh)
+    delta = torch.sum(dof * o.float().reshape(B, K, G, Sq, dh), dim=-1)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgqd,bktd->bkgqt", qf * scale, kf)
+    mask = _flash_mask(Sq, T, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, K, G, Sq)[..., None]), 0.0)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, dof)
+    dp = torch.einsum("bkgqd,bktd->bkgqt", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, kf)
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qf)
+    return (dq.reshape(B, H, Sq, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 def decode_attention_ref(q, k_cache, v_cache, lengths, *, window=None):

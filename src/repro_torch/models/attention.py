@@ -1,5 +1,5 @@
-"""GQA attention, forward only: the hand-written kernels on the GPU, and the
-JAX package's chunked online softmax as plain PyTorch on the CPU.
+"""GQA attention with a flash backward: the hand-written kernels on the GPU,
+and the JAX package's chunked online softmax as plain PyTorch on the CPU.
 
 Layouts:
   q        (B, Sq, H, dh)
@@ -9,8 +9,17 @@ On CUDA, ``attention`` with ``q_offset == 0`` and no ``kv_lengths`` -- every
 prefill call of the model -- runs the flash kernel (K1), and
 ``decode_attention`` runs the decode kernel (K2).  Both kernels read these
 layouts in place by stride.  Other ``attention`` arguments on CUDA raise
-``NotImplementedError``: no caller on the serving path makes them.  The
-custom backward of the JAX package comes with training.
+``NotImplementedError``: no caller on the serving path makes them.
+
+Training: when grad mode is on and q, k or v requires grad, ``attention``
+goes through ``FlashAttention``, the counterpart of the JAX package's custom
+VJP (``_attention_vjp``): its forward is ``ops.flash_attention(...,
+return_lse=True)`` and it saves only (q, k, v, out, lse), no (Sq, T)-shaped
+residual; its backward is ``ops.flash_attention_bwd``, which recomputes the
+scores block by block.  On CUDA both are kernels (K1 and its backward), on
+the CPU their plain versions.  It takes ``q_offset == 0`` and no
+``kv_lengths``, as every training call does.  Under ``torch.no_grad`` (every
+serving call) nothing changes.
 """
 
 from __future__ import annotations
@@ -72,8 +81,15 @@ def attention(
     kv_lengths: optional (B,) valid kv lengths (positions >= length masked).
     window: sliding window width (attend to kv in (q_pos-window, q_pos]).
     """
+    prefill = isinstance(q_offset, int) and q_offset == 0 and kv_lengths is None
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if not prefill:
+            raise NotImplementedError(
+                "the attention backward takes q_offset=0 and no kv_lengths, as "
+                "every training call")
+        return FlashAttention.apply(q, k, v, causal, window)
     if q.is_cuda:
-        if not (isinstance(q_offset, int) and q_offset == 0 and kv_lengths is None):
+        if not prefill:
             raise NotImplementedError(
                 "attention on CUDA runs the prefill kernel: q_offset=0 and no "
                 "kv_lengths")
@@ -81,11 +97,43 @@ def attention(
                                 v.transpose(1, 2), causal=causal, window=window)
         return o.transpose(1, 2)
     return _attention_fwd_core(q, k, v, q_offset, kv_lengths, causal, window,
-                               block_kv)
+                               block_kv)[0]
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward (the JAX package's ``_attention_vjp``).
+
+    (B, Sq, H, dh) q and (B, T, K, dh) k/v in, (B, Sq, H, dh) out; the
+    kernels read the (B, heads, S, dh) views of these by stride.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=causal,
+                                     window=window, return_lse=True)
+        out = o.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = ops.flash_attention_bwd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            out.transpose(1, 2), lse, dout.transpose(1, 2), causal=ctx.causal,
+            window=ctx.window)
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), None, None
 
 
 def _attention_fwd_core(q, k, v, q_offset, kv_lengths, causal, window, block_kv):
-    """The chunked online-softmax forward of the JAX package, block by block."""
+    """The chunked online-softmax forward of the JAX package, block by block.
+
+    Returns (out (B, Sq, H, dh), lse (B, Sq, K, G) f32), as the JAX package's.
+    """
     B, Sq, H, dh = q.shape
     _, T, K, _ = k.shape
     G = H // K
@@ -118,7 +166,8 @@ def _attention_fwd_core(q, k, v, q_offset, kv_lengths, causal, window, block_kv)
             "bqkgt,btkd->bqkgd", p.to(vblk.dtype).float(), vblk.float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]
-    return out.reshape(B, Sq, H, dh).to(out_dtype)
+    lse = m + torch.log(torch.clamp(l, min=1e-20))
+    return out.reshape(B, Sq, H, dh).to(out_dtype), lse
 
 
 def attention_reference(q, k, v, *, causal=True, window=None, q_offset=0,

@@ -108,15 +108,36 @@ def embed(tokens, table):
     return table[tokens]
 
 
+class _UnembedBF16(torch.autograd.Function):
+    """bf16 (N, D) @ (D, V) with float32 output, and its two products back.
+
+    The backward rounds the float32 logits' gradient to bf16 and returns
+    bf16 gradients, as the JAX package's ``preferred_element_type`` einsum
+    gives gradients in its operands' dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, table):
+        ctx.save_for_backward(x, table)
+        return torch.mm(x, table, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, table = ctx.saved_tensors
+        dy = dy.to(torch.bfloat16)
+        return torch.mm(dy, table.t()), torch.mm(x.t(), dy)
+
+
 def unembed(x, table):
     """x: (..., D) @ (D, V) -> logits in f32.
 
     A bf16 table on the GPU is multiplied as it is, with float32 output
-    (``out_dtype``): upcasting a 256000 x 3072 table would copy 3 GB on
-    every step.
+    (``out_dtype``), through ``_UnembedBF16``: upcasting a 256000 x 3072
+    table would copy 3 GB on every step, and ``mm.dtype`` has no derivative
+    of its own.  Outside autograd (serving) the Function builds no graph.
     """
     if x.is_cuda and x.dtype == table.dtype == torch.bfloat16:
         *lead, d = x.shape
-        y = torch.mm(x.reshape(-1, d), table, out_dtype=torch.float32)
+        y = _UnembedBF16.apply(x.reshape(-1, d), table)
         return y.reshape(*lead, table.shape[1])
     return torch.matmul(x.float(), table.float())

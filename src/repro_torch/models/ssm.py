@@ -223,7 +223,11 @@ def ssd_chunked(x, B_t, C_t, log_decay, dt, h0, chunk: int = SSD_CHUNK):
     # triangle is -inf before the exp, so nothing there can overflow
     w = cum[..., :, None] - cum[..., None, :]                       # (B, nc, nh, t, u)
     upper = torch.ones(L, L, dtype=torch.bool, device=x.device).triu(1)
-    w = w.masked_fill_(upper, float("-inf")).exp_().mul_(Cc @ Bc.transpose(-1, -2))
+    w = w.masked_fill_(upper, float("-inf")).exp_()
+    cb = Cc @ Bc.transpose(-1, -2)
+    # in place when nothing differentiates through w (serving); under
+    # autograd exp's output is kept for its backward
+    w = w * cb if w.requires_grad else w.mul_(cb)
     y = w @ xdt                                                     # within the chunk
     # each chunk's own contribution to the state at its end
     to_end = torch.exp(cum[..., -1:] - cum)                         # (B, nc, nh, L)

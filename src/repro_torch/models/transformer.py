@@ -14,10 +14,10 @@ Parameters are a nested dict of tensors with the JAX package's keys, each
 layer leaf stacked on a leading (L, ...) axis; the layers run as a Python
 loop over views of those leaves.
 
-Entry points, used by serving:
+Entry points, used by serving and training:
   init_params(cfg, seed, device)             -> params
   params_from_numpy(tree, cfg, device)       -> params (from the JAX package's)
-  forward(params, cfg, batch)                -> dict(logits (B, S, V) f32, ...)
+  forward(params, cfg, batch, remat=)        -> dict(logits (B, S, V) f32, ...)
   init_cache(cfg, batch, max_seq, device=)   -> cache
   prefill(params, cfg, batch, max_seq)       -> (logits_last, cache)
   decode_step(params, cfg, cache, tokens)    -> (logits, cache)
@@ -34,6 +34,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.devices import resolve_device
@@ -224,18 +225,29 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     return convert(tree, param_specs(cfg), "")
 
 
-def _layer(tree, i: int):
-    """Layer ``i``'s parameters: views into the stacked (L, ...) leaves."""
+def _unbind(tree):
+    """Each stacked (L, ...) leaf as its L views along the first axis."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
+        return {k: _unbind(v) for k, v in tree.items()}
     if isinstance(tree, QTensor):
-        return QTensor(tree.wq[i], tree.scales[i])
-    return tree[i]
+        return [QTensor(wq, sc) for wq, sc in zip(tree.wq.unbind(0), tree.scales.unbind(0))]
+    return tree.unbind(0)
+
+
+def _pick(views, i: int):
+    if isinstance(views, dict):
+        return {k: _pick(v, i) for k, v in views.items()}
+    return views[i]
 
 
 def _layers(stacked, n: int):
-    """The parameters of each of the ``n`` layers of a stacked (L, ...) tree."""
-    return [_layer(stacked, i) for i in range(n)]
+    """The parameters of each of the ``n`` layers of a stacked (L, ...) tree:
+    views from one ``unbind`` of each leaf.  Under autograd a leaf's gradient
+    is then one stack of its layers' gradients; indexing each layer instead
+    would scatter every layer's gradient into a zeroed full-size (L, ...)
+    tensor and add the L of them up."""
+    views = _unbind(stacked)
+    return [_pick(views, i) for i in range(n)]
 
 
 # =============================================================================
@@ -351,15 +363,25 @@ def _ffn(p, cfg: ModelConfig, x):
     return layers.apply_mlp(p["mlp"], x, cfg.mlp), None
 
 
-def _decoder_layer(p, cfg, x, angles, *, window):
-    """Standard pre-norm decoder layer. Returns (x, (k, v), aux or None)."""
-    h, kv = _self_attention_full(
-        p["attn"], cfg, layers.rms_norm(x, p["ln1"], cfg.norm_eps),
-        angles, window=window,
-    )
-    x = x + h
-    h, aux = _ffn(p, cfg, layers.rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x + h, kv, aux
+def _decoder_layer(p, cfg, x, angles, *, window, remat: bool = False):
+    """Standard pre-norm decoder layer. Returns (x, (k, v), aux or None).
+
+    ``remat`` recomputes the layer's activations in the backward instead of
+    keeping them (the JAX package's checkpoint of the layer body).
+    """
+
+    def body(p, x, angles):
+        h, kv = _self_attention_full(
+            p["attn"], cfg, layers.rms_norm(x, p["ln1"], cfg.norm_eps),
+            angles, window=window,
+        )
+        x = x + h
+        h, aux = _ffn(p, cfg, layers.rms_norm(x, p["ln2"], cfg.norm_eps))
+        return x + h, kv, aux
+
+    if remat:
+        return checkpoint(body, p, x, angles, use_reentrant=False)
+    return body(p, x, angles)
 
 
 # =============================================================================
@@ -404,9 +426,12 @@ def _lm_logits(params, cfg, x, logits_for: str = "all"):
     return layers.unembed(x, table)
 
 
-def forward(params, cfg: ModelConfig, batch, *, collect_kv: bool = False,
-            logits_for: str = "all"):
+def forward(params, cfg: ModelConfig, batch, *, remat: bool = False,
+            collect_kv: bool = False, logits_for: str = "all"):
     """Full-sequence scoring. Returns dict(logits, aux_loss [, kv | state | xkv]).
+
+    ``remat`` checkpoints each decoder layer (dense, moe, vlm) and the hybrid
+    family's shared block, as the JAX package's ``forward(..., remat)``.
 
     logits_for="last" computes the LM head on the final position only (the
     prefill path: avoids materializing the (B, S, V) logits tensor).  With
@@ -434,14 +459,15 @@ def forward(params, cfg: ModelConfig, batch, *, collect_kv: bool = False,
             out["state"] = {key: torch.stack([st[key] for st in collected])
                             for key in ("wkv", "tm_shift", "cm_shift")}
     elif cfg.family == "hybrid":
-        x, state, kv = _forward_hybrid(params, cfg, batch, x)
+        x, state, kv = _forward_hybrid(params, cfg, batch, x, remat=remat)
         if collect_kv:
             out["state"], out["kv"] = state, kv
     else:
         angles = _rope_angles_for(cfg, batch, B, S, x.device)
         collected = []
         for lp in _layers(params["layers"], cfg.num_layers):
-            x, kv, aux = _decoder_layer(lp, cfg, x, angles, window=cfg.attn_window)
+            x, kv, aux = _decoder_layer(lp, cfg, x, angles, window=cfg.attn_window,
+                                        remat=remat)
             if aux is not None:
                 aux_total = aux_total + aux
             if collect_kv:
@@ -456,7 +482,7 @@ def _stack_kv(kvs):
     return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
 
 
-def _forward_hybrid(params, cfg, batch, x):
+def _forward_hybrid(params, cfg, batch, x, remat: bool = False):
     """Returns (x, {"conv", "ssm"} each (L, ...), kv (G, B, S, K, hd) pair)."""
     B, S, _ = x.shape
     angles = _rope_angles_for(cfg, batch, B, S, x.device)
@@ -470,7 +496,7 @@ def _forward_hybrid(params, cfg, batch, x):
             states.append(st)
         # the shared (weight-tied) attention block, on a per-group input gain
         x, kv, _ = _decoder_layer(params["shared"], cfg, x * params["group_gain"][g],
-                                  angles, window=cfg.attn_window)
+                                  angles, window=cfg.attn_window, remat=remat)
         kvs.append(kv)
     state = {key: torch.stack([st[key] for st in states]) for key in ("conv", "ssm")}
     return x, state, _stack_kv(kvs)

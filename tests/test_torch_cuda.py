@@ -707,3 +707,141 @@ def test_si2_whisper_free_slot_past_max_seq_in_a_graph(gen):
     cache = si2.slot_graphs[0].cache
     assert int(cache["lengths"][1]) > 32
     assert not bool(torch.isnan(cache["k"]).any() or torch.isnan(cache["v"]).any())
+
+
+# -- training: K1's lse, K1's backward, a train step ---------------------------------
+
+
+def _attn_inputs(gen, B, H, K, Sq, T, dh, dtype):
+    mk = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    return (mk(B, Sq, H, dh).transpose(1, 2), mk(B, T, K, dh).transpose(1, 2),
+            mk(B, T, K, dh).transpose(1, 2))
+
+
+@pytest.mark.parametrize("dh", [32, 64, 80, 128])
+@pytest.mark.parametrize("path", ["mma", "fma"])
+@pytest.mark.parametrize("causal,window,Sq,T", [(True, None, 130, 130), (True, 40, 200, 200),
+                                                (False, None, 64, 200)])
+def test_flash_attention_lse(gen, dh, path, causal, window, Sq, T):
+    """K1 writes the natural-log row lse on both paths (mma keeps its running
+    max in log2 units); without lse its output is the same bits."""
+    dtype = torch.bfloat16 if path == "mma" else torch.float32
+    q, k, v = _attn_inputs(gen, 2, 6, 2, Sq, T, dh, dtype)
+    assert k1.plan_call(q, k, v) == path
+    n = ops.launch_counts()["flash_attention"]
+    o, lse = ops.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    assert ops.launch_counts()["flash_attention"] == n + 1
+    want_o, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                               return_lse=True)
+    torch.testing.assert_close(o, want_o, **_tol(dtype))
+    torch.testing.assert_close(lse, want_lse, **_tol(dtype))
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal, window=window), o)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 80, 128])
+@pytest.mark.parametrize("mask", ["causal", "window", "cross"])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel(gen, dh, mask, G, dtype):
+    """K1's backward against flash_attention_bwd_ref: causal, a window, and
+    the non-causal cross attention with Sq != T; GQA; dh 80's columns 64-79."""
+    Sq, T = {"causal": (130, 130), "window": (200, 200), "cross": (64, 200)}[mask]
+    causal, window = mask != "cross", (40 if mask == "window" else None)
+    B, K = 2, 2
+    q, k, v = _attn_inputs(gen, B, K * G, K, Sq, T, dh, dtype)
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    do = torch.randn(B, Sq, K * G, dh, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    n = ops.launch_counts()["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    assert ops.launch_counts()["flash_attention_bwd"] == n + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        torch.testing.assert_close(a, b, **_tol(dtype))
+        if dh == 80:
+            assert a[..., 64:].abs().sum() > 0, name
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_masked_rows_give_zeros(gen, dtype):
+    """q rows that see no key (non-causal, window 1, rows past T: lse -1e30
+    on both forward paths, as the JAX package gives it) get zero dq, not NaN;
+    every gradient matches the plain version."""
+    q, k, v = _attn_inputs(gen, 1, 4, 2, 100, 70, 64, dtype)
+    do = torch.randn(1, 100, 4, 64, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    o, lse = ops.flash_attention(q, k, v, causal=False, window=1, return_lse=True)
+    assert torch.all(lse[..., 70:] == ref.NEG_INF) and torch.isfinite(lse[..., :70]).all()
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=False, window=1)
+    assert not got[0][:, :, 70:].abs().sum()
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False, window=1)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_autograd_runs_the_kernels(gen, dtype):
+    """attention() under autograd: K1 with lse forward, K1's backward; the
+    gradients are the kernels' and match autograd of the plain version."""
+    q, k, v = (t.transpose(1, 2).detach().requires_grad_()
+               for t in _attn_inputs(gen, 2, 6, 2, 96, 96, 64, dtype))
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    n = ops.launch_counts()
+    out = attention(q, k, v, causal=True, window=33)
+    out.backward(do)
+    after = ops.launch_counts()
+    assert after["flash_attention"] == n["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == n["flash_attention_bwd"] + 1
+    qr, kr, vr = (t.detach().float().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    ref.flash_attention_ref(qr, kr, vr, causal=True, window=33).backward(
+        do.float().transpose(1, 2))
+    for t, r in zip((q, k, v), (qr, kr, vr)):
+        torch.testing.assert_close(t.grad.float(), r.grad.transpose(1, 2), **_tol(dtype))
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b-smoke", "zamba2-2.7b-smoke",
+                                  "whisper-small-smoke"])
+def test_train_step_card_vs_cpu(gen, arch):
+    """One f32 train step on the card (K1, K1's backward) and on the CPU
+    (plain versions) from the same weights: loss within 1e-4, gradients
+    within 1e-3."""
+    from repro_torch.training import optim, trainer
+
+    cfg = get_arch(arch)
+    p_cpu = T.init_params(cfg, seed=0, device="cpu")
+    p_gpu = T.params_from_numpy(_numpy_tree(p_cpu), cfg)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 24), dtype=np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 24), dtype=np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)
+    n = ops.launch_counts()
+    l_gpu, _, g_gpu = trainer.loss_and_grads(p_gpu, cfg, trainer.batch_to(batch, "cuda"))
+    after = ops.launch_counts()
+    assert after["flash_attention"] > n["flash_attention"]
+    assert after["flash_attention_bwd"] > n["flash_attention_bwd"]
+    l_cpu, _, g_cpu = trainer.loss_and_grads(p_cpu, cfg, trainer.batch_to(batch, "cpu"))
+    assert abs(float(l_gpu) - float(l_cpu)) < 1e-4
+    for a, b in zip(optim.tree_leaves(g_gpu), optim.tree_leaves(g_cpu)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=0)
+    opt_cfg = optim.AdamWConfig(warmup_steps=1, total_steps=4)
+    step = trainer.make_train_step(cfg, opt_cfg)
+    _, opt, stats = step(p_gpu, optim.init_opt_state(p_gpu), batch)
+    assert opt["step"] == 1 and torch.isfinite(stats["loss"])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b-smoke", "rwkv6-3b-smoke"])
+def test_train_step_raises_without_a_backward_kernel(gen, arch):
+    from repro_torch.training import optim, trainer
+
+    with pytest.raises(NotImplementedError, match="K4" if "mixtral" in arch else "K5"):
+        trainer.make_train_step(get_arch(arch), optim.AdamWConfig())
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.numpy()

@@ -381,5 +381,8 @@ def test_launch_counters_untouched_on_cpu():
     ops.moe_gmm(x3, x3.transpose(1, 2).contiguous())
     _, r = _pair(16, (1, 2, 4, 8), "float32")
     ops.rwkv6_scan(r, r, r, r.sigmoid(), r[0, :, 0], torch.zeros((1, 2, 8, 8)))
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "int8_matmul": 0, "moe_gmm": 0, "rwkv6_scan": 0}
+    o, lse = ops.flash_attention(r, r, r, return_lse=True)
+    ops.flash_attention_bwd(r, r, r, o, lse, o)
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                   "decode_attention": 0, "int8_matmul": 0, "moe_gmm": 0,
+                                   "rwkv6_scan": 0}

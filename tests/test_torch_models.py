@@ -352,7 +352,7 @@ def test_moe_capacity_drops_match_reference(twins):
 def test_rwkv6_time_and_channel_mix_match_reference(twins):
     jcfg, cfg, jp, p = twins("rwkv6-3b-smoke")
     jl = jax.tree.map(lambda a: a[1], jp["layers"])
-    tl = T._layer(p["layers"], 1)
+    tl = T._layers(p["layers"], cfg.num_layers)[1]
     jx, x = _pair(23, (2, 7, cfg.d_model))
     jprev, prev = _pair(24, (2, cfg.d_model))
     js0, s0 = _pair(25, (2, 4, 32, 32), 0.1)

@@ -80,6 +80,20 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
                  lambda: serve.main(["--arch", cfg.name, "--requests", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+    # training: the step, the loop, checkpoints, the optimizer state, the launcher
+    from repro_torch.launch import train
+    from repro_torch.training import checkpoint, optim, trainer
+
+    opt = optim.AdamWConfig()
+    state = optim.init_opt_state(params)
+    checkpoint.save_checkpoint(str(tmp_path / "ckpt"), params, state, 0)
+    for make in (lambda: trainer.make_train_step(cfg, opt),
+                 lambda: trainer.train_loop(cfg, opt, iter([]), 0),
+                 lambda: checkpoint.load_checkpoint(str(tmp_path / "ckpt"), params, state),
+                 lambda: optim.opt_state_from_numpy(optim.opt_state_to_numpy(state)),
+                 lambda: train.main(["--arch", cfg.name, "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
