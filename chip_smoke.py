@@ -119,6 +119,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -334,20 +335,45 @@ def check_close(name: str, got, want, atol: float, rtol: float) -> float:
 # -- phases ----------------------------------------------------------------------
 
 
+def ptxas_report(log: str) -> dict:
+    """{kernel: [registers, spill store bytes]} from nvcc's -Xptxas -v log;
+    a kernel of the anonymous namespace as ``name<template args>``."""
+    out, name, spill = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            n = re.match(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}(\d+)", name)
+            if n:
+                at = n.end() + int(n.group(1))
+                args = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(t, d) for t, d in re.findall(
+                    r"(?<=I)(f|13__nv_bfloat16)|Li(\d+)E", name[at:].split("EEv")[0])]
+                name = name[n.end():at] + (f"<{','.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            out[name] = [int(m.group(1)), spill]
+            name = None
+    return out
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     report = build.build_all()
     seconds = time.perf_counter() - t0
-    for name, r in report.items():
-        lines = [ln.strip() for ln in r["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"[nvcc {name}]\n" + "\n".join(lines), file=sys.stderr)
+    ptxas = {name: ptxas_report(r["log"]) for name, r in report.items()}
+    for name, kernels in ptxas.items():
+        print(f"[nvcc {name}] registers, spill stores: {json.dumps(kernels)}", file=sys.stderr)
     out = {"phase": "build", "seconds": seconds,
            "nvcc_seconds": {k: r["seconds"] for k, r in report.items()},
            "built": {k: r["built"] for k, r in report.items()},
-           "gpu": smi()}
+           "ptxas": ptxas, "gpu": smi()}
     emit(out)
     return out
 
@@ -642,7 +668,8 @@ def emit_case(kernel: str, case: dict) -> None:
     """One kernel case on stderr as it completes: path, error, times, factor."""
     keys = ("arch", "shape", "window", "group_sizes", "dtype", "path", "splits", "plan",
             "max_abs_err", "ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms", "factor",
-            "graph_factor", "device_us", "kernel_device_ms", "library_device_ms")
+            "graph_factor", "device_us", "kernel_device_ms", "library_device_ms", "dq_splits",
+            "library_fwd_bwd_ms", "library_fwd_bwd_device_ms", "device_factor")
     print(f"[{kernel}] " + json.dumps({k: case[k] for k in keys if k in case}),
           file=sys.stderr, flush=True)
 
@@ -2271,12 +2298,16 @@ TRAIN_PARTS = (("k1_fwd", ("namespace)::flash_",)), ("k1_bwd", ("namespace)::att
 
 def _train_attention_cases(seed: int) -> tuple:
     """K1 with lse and K1's backward against their plain versions at the
-    training shapes, bf16 (timed) and f32; SDPA forward and forward +
-    backward are the library yardsticks."""
+    training shapes, bf16 (timed) and f32, with each backward case's planned
+    path and dq splits; SDPA's forward, and SDPA's backward alone on one
+    retained forward, are the library yardsticks (SDPA's forward + backward
+    is timed beside them, the reading earlier rows were held against)."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as k1
+    from repro_torch.kernels import flash_attention_bwd as k1b
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device="cuda")
@@ -2306,7 +2337,10 @@ def _train_attention_cases(seed: int) -> tuple:
             if (T, causal) != (S, True):
                 base.update(kv_len=T, causal=causal)
             fwd = dict(base, path=k1.plan_call(q, k, v), lse=True, max_abs_err=err)
-            bwd = dict(base, max_abs_err=berr, bit_identical=True)
+            path = k1b.plan_call(q, k, v, o, do)
+            splits = (k1b.dq_plan(B, H, S, T, build.sm_count(0)).splits if path == "mma"
+                      else 1)
+            bwd = dict(base, path=path, dq_splits=splits, max_abs_err=berr, bit_identical=True)
             if dtype == torch.bfloat16:
                 es = q.element_size()
                 pairs = B * H * (S * (S + 1) / 2 if causal else S * T)   # live (q, k) pairs
@@ -2323,19 +2357,27 @@ def _train_attention_cases(seed: int) -> tuple:
                                                          enable_gqa=True)
                     return torch.autograd.grad(out, (ql, kl, vl), do)
 
+                retained = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                                          enable_gqa=True)
+
+                def sdpa_bwd():   # the function the kernel computes: the backward alone
+                    return torch.autograd.grad(retained, (ql, kl, vl), do, retain_graph=True)
+
                 # reads q, k, v, o, do, lse; writes dq, dk, dv; 5 products
                 nbytes = (3 * B * S * H * dh + 2 * B * T * K * dh) * es + 4 * B * H * S \
                     + (B * S * H * dh + 2 * B * T * K * dh) * es
                 kernel = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
                 timed(bwd, kernel, lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
-                      sdpa_fwd_bwd, nbytes, 5 * 2 * dh * pairs, graph_library=False)
-                # SDPA's autograd call is not captured in a graph: its device
-                # time, and the kernel's, from torch.profiler instead
-                us = device_us({"kernel": kernel, "library": sdpa_fwd_bwd})
-                bwd["device_us"] = us
-                bwd["kernel_device_ms"] = sum(v for k, v in us.items() if "attn_bwd_" in k) / 1e3
-                bwd["library_device_ms"] = sum(v for k, v in us.items()
-                                               if "attn_bwd_" not in k) / 1e3
+                      sdpa_bwd, nbytes, 5 * 2 * dh * pairs, graph_library=False)
+                bwd["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
+                # SDPA's autograd calls are not captured in a graph: their
+                # device time, and the kernel's, from torch.profiler instead
+                for name, fn in (("kernel", kernel), ("library", sdpa_bwd),
+                                 ("library_fwd_bwd", sdpa_fwd_bwd)):
+                    us = device_us({name: fn})
+                    bwd[f"{name}_device_ms"] = sum(us.values()) / 1e3
+                    bwd[f"{name}_device_us"] = us
+                bwd["device_factor"] = bwd["kernel_device_ms"] / bwd["library_device_ms"]
             emit_case("flash_attention", fwd)
             emit_case("flash_attention_bwd", bwd)
             fwd_cases.append(fwd)
@@ -2445,7 +2487,8 @@ def _train_smoke(seed: int) -> dict:
 
 def _profile_parts(fn) -> tuple:
     """``fn()`` under torch.profiler: (its result, device microseconds summed
-    by TRAIN_PARTS, the rest as ``other``)."""
+    by TRAIN_PARTS, the rest as ``other``, and the kernels summed into each
+    part by name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2454,7 +2497,7 @@ def _profile_parts(fn) -> tuple:
         result = fn()
         torch.cuda.synchronize()
     parts = dict.fromkeys([p for p, _ in TRAIN_PARTS] + ["other"], 0.0)
-    other = {}
+    names = {p: {} for p in parts}
     for e in prof.key_averages():
         us = e.self_device_time_total
         if us <= 0:
@@ -2462,12 +2505,11 @@ def _profile_parts(fn) -> tuple:
         part = next((p for p, frags in TRAIN_PARTS if any(f in e.key for f in frags)),
                     "other")
         parts[part] += us
-        if part == "other":
-            other[e.key[:90]] = other.get(e.key[:90], 0.0) + us
-    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:8])
-    print(f"[train profile] {json.dumps(parts)} top other {json.dumps(top)}",
-          file=sys.stderr, flush=True)
-    return result, parts
+        names[part][e.key[:90]] = names[part].get(e.key[:90], 0.0) + us
+    top = dict(sorted(names["other"].items(), key=lambda kv: -kv[1])[:8])
+    print(f"[train profile] {json.dumps(parts)} k1_bwd {json.dumps(names['k1_bwd'])} "
+          f"top other {json.dumps(top)}", file=sys.stderr, flush=True)
+    return result, parts, names
 
 
 def _train_full_width(seed: int, card, batch: int = 2, seq: int = 512,
@@ -2526,8 +2568,14 @@ def _train_full_width(seed: int, card, batch: int = 2, seq: int = 512,
             launches["flash_attention_bwd"] != steps * cfg.num_layers:
         raise AssertionError(f"full-width train: launches {launches}")
     tb = trainer.batch_to(batches[steps + 1], "cuda")
-    (_, _, grads), fb = _profile_parts(lambda: trainer.loss_and_grads(params, cfg, tb))
-    _, upd = _profile_parts(lambda: optim.adamw_update(
+    (_, _, grads), fb, fb_names = _profile_parts(
+        lambda: trainer.loss_and_grads(params, cfg, tb))
+    # every backward call of the bf16 model plans the tensor-core path
+    fma = [n for n in fb_names["k1_bwd"] if "attn_bwd_mma_" not in n
+           and "attn_bwd_delta" not in n and "attn_bwd_dq_reduce" not in n]
+    if fma or not fb_names["k1_bwd"]:
+        raise AssertionError(f"full-width train: K1 backward kernels {fb_names['k1_bwd']}")
+    _, upd, _ = _profile_parts(lambda: optim.adamw_update(
         optim.AdamWConfig(warmup_steps=1, total_steps=steps), params, grads, opt_state))
     breakdown = dict(fb, adamw=sum(upd.values()))
     total = sum(breakdown.values())
@@ -2543,6 +2591,7 @@ def _train_full_width(seed: int, card, batch: int = 2, seq: int = 512,
            "card_w": energy["w"], "card_j_per_token": energy["j"] / tokens,
            "energy_method": card.method, "launches": launches,
            "device_us": breakdown, "device_us_total": total,
+           "k1_bwd_kernels_us": fb_names["k1_bwd"],
            "device_share": {k: v / total for k, v in breakdown.items()}}
     del params, opt_state, grads, step_fn
     gc.collect()

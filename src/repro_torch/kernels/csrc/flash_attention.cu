@@ -44,7 +44,7 @@
 //        row's max and sum combined with warp shuffles, dh/4 output columns
 //        of the row per thread.  The block walks kv tiles from the window's
 //        first tile to the causal diagonal and no further.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -214,75 +214,12 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o, fl
 
 // ---------------------------------------------------------------- mma path
 
-constexpr int MQ = 64;          // q rows per block, 16 per warp
-constexpr int MKV = 64;         // kv rows per tile
-constexpr int M_THREADS = 128;
+constexpr int MQ = MMA_ROWS;    // q rows per block, 16 per warp
+constexpr int MKV = MMA_ROWS;   // kv rows per tile
+constexpr int M_THREADS = MMA_THREADS;
 
-template <int DH>
-__host__ __device__ constexpr int mma_stride() { return DH + 8; }  // bf16 per padded row: +16 bytes
 template <int DH>
 __host__ __device__ constexpr int mma_smem_bytes() { return 5 * MQ * mma_stride<DH>() * 2; }  // Q, K x2, V x2
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// 2^x (ex2.approx: 2 ulp, +0 at -inf)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&b);
-}
-
-// rows [s0, s0 + 64) of one head, dh wide, into a padded tile; rows >= limit
-// are zero-filled by the copy itself
-template <int DH>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long stride_s, int s0, int limit, int tid) {
-  constexpr int CHUNKS = DH / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int it = 0; it < MKV * CHUNKS / M_THREADS; ++it) {
-    const int i = tid + it * M_THREADS;
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const bool ok = s0 + r < limit;
-    const __nv_bfloat16* src = ok ? base + (long long)(s0 + r) * stride_s + c * 8 : base;
-    cp_async16(smem_u32(dst + r * mma_stride<DH>() + c * 8), src, ok);
-  }
-}
 
 template <int DH>
 __global__ void __launch_bounds__(M_THREADS)

@@ -1,7 +1,8 @@
 // Building blocks shared by the kernels for Hopper (sm_90a): cp.async
-// copies (K2, K4's wmma path), and for the tensor-core kernels (K3's and K4's
-// wgmma paths, K4's mma path) shared-memory addresses, mbarriers, TMA and bulk
-// copies, ldmatrix and mma.sync, wgmma descriptors and fences, and
+// copies (K2, K4's wmma path, K1's mma paths through mma.cuh), and for the
+// tensor-core kernels (K3's and K4's wgmma paths, K4's and K1's mma paths)
+// shared-memory addresses, mbarriers, TMA and bulk copies, ldmatrix and
+// mma.sync, wgmma descriptors and fences, and
 // cuTensorMapEncodeTiled fetched from the driver through the runtime, so a
 // kernel library needs no -lcuda.
 #pragma once
@@ -16,12 +17,15 @@ namespace {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

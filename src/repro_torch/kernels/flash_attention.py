@@ -37,7 +37,8 @@ PATHS = {"fma": 0, "mma": 1}   # csrc/flash_attention.cu FLASH_PATH_*
 
 def _bsh(t: torch.Tensor):
     """Element strides of (batch, sequence, head) for a (B, heads, S, dh) tensor."""
-    return t.stride(0), t.stride(2), t.stride(1)
+    s = t.stride()
+    return s[0], s[2], s[1]
 
 
 def plan(dtype: torch.dtype, copy_aligned: bool) -> str:

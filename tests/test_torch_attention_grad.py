@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.models import attention as jattn
+from repro_torch.kernels import flash_attention_bwd as k1b
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as tattn
 
@@ -128,3 +129,46 @@ def test_attention_under_no_grad_and_offsets():
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
     with pytest.raises(NotImplementedError, match="q_offset=0"):
         tattn.attention(q.requires_grad_(), k, v, q_offset=8)
+
+
+def _split_dq(q, k, v, o, lse, do, causal, window, p):
+    """The mma path's dq pass split over the kv range (csrc/flash_attention_bwd.cu,
+    ``attn_bwd_mma_dq`` then ``attn_bwd_dq_reduce``) in plain PyTorch: delta
+    once from the whole rows, every split's partial dq over its chunk of keys
+    alone, then the partials summed in split order."""
+    B, H, Sq, dh = q.shape
+    K, T = k.shape[1], k.shape[2]
+    G, scale = H // K, dh ** -0.5
+    kf, vf = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    delta = (do * o).sum(-1, keepdim=True)
+    mask = ref._flash_mask(Sq, T, causal, window, q.device)
+    dq = torch.zeros_like(q)
+    for s in range(p.splits):
+        span = slice(s * p.chunk, min(T, (s + 1) * p.chunk))
+        sc = torch.einsum("bhqd,bhtd->bhqt", q * scale, kf[:, :, span])
+        pr = torch.where(mask[:, span], torch.exp(sc - lse[..., None]), 0.0)
+        dp = torch.einsum("bhqd,bhtd->bhqt", do, vf[:, :, span])
+        dq = dq + torch.einsum("bhqt,bhtd->bhqd", pr * (dp - delta) * scale, kf[:, :, span])
+    return dq
+
+
+@pytest.mark.parametrize("B,Sq,T,H,K,dh,kwargs", [
+    (1, 8, 300, 2, 2, 16, dict(causal=False)),          # Sq << T: whisper's cross shape
+    (1, 200, 200, 4, 2, 16, dict(causal=True)),
+    (1, 150, 150, 2, 1, 32, dict(causal=True, window=70)),
+], ids=["cross", "causal", "causal_window70"])
+def test_split_dq_model_matches_the_reference_vjp(B, Sq, T, H, K, dh, kwargs):
+    """dq from the split-and-reduce model at the plan's splits (every one of
+    them more than one) equals the JAX package's VJP of its attention, in f32."""
+    p = k1b.dq_plan(B, H, Sq, T, 132)
+    assert p.splits > 1
+    q, k, v = _qkv(6, B, Sq, T, H, K, dh)
+    w = np.random.default_rng(7).standard_normal((B, Sq, H, dh)).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jattn.attention(q, k, v, block_kv=8, **kwargs),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(w))[0]
+    qt, kt, vt, dot = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v, w))
+    o, lse = ref.flash_attention_ref(qt, kt, vt, return_lse=True, **kwargs)
+    got = _split_dq(qt, kt, vt, o, lse, dot, kwargs["causal"], kwargs.get("window"), p)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), np.asarray(want), atol=3e-4,
+                               rtol=3e-3)

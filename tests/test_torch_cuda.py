@@ -13,6 +13,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core.engines import CompiledEngine, EagerEngine
 from repro_torch.kernels import decode_attention as k2
 from repro_torch.kernels import flash_attention as k1
+from repro_torch.kernels import flash_attention_bwd as k1b
 from repro_torch.kernels import int8_matmul as k3
 from repro_torch.kernels import moe_gmm as k4
 from repro_torch.kernels import rwkv6_scan as k5
@@ -751,6 +752,7 @@ def test_flash_attention_bwd_kernel(gen, dh, mask, G, dtype):
     q, k, v = _attn_inputs(gen, B, K * G, K, Sq, T, dh, dtype)
     o, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
     do = torch.randn(B, Sq, K * G, dh, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    assert k1b.plan_call(q, k, v, o, do) == ("mma" if dtype == torch.bfloat16 else "fma")
     n = ops.launch_counts()["flash_attention_bwd"]
     got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
     assert ops.launch_counts()["flash_attention_bwd"] == n + 1
@@ -762,6 +764,71 @@ def test_flash_attention_bwd_kernel(gen, dh, mask, G, dtype):
             assert a[..., 64:].abs().sum() > 0, name
     again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
     assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+
+
+def test_flash_attention_bwd_bf16_unaligned_takes_fma(gen):
+    """bf16 rows the 16-byte copies cannot take (dh + 1 apart) plan "fma" and
+    still match the plain version."""
+    B, H, K, S, dh = 2, 4, 2, 96, 64
+    odd = lambda n: torch.randn(B, S, n, dh + 1, generator=gen, device="cuda").to(  # noqa: E731
+        torch.bfloat16)[..., :dh].transpose(1, 2)
+    q, k, v, do = odd(H), odd(K), odd(K), odd(H)
+    o, lse = ref.flash_attention_ref(q, k, v, causal=True, return_lse=True)
+    assert k1b.plan_call(q, k, v, o, do) == "fma"
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_split_dq(gen, dtype):
+    """Sq 64 against T 1500 (whisper's cross attention, one head pair): the
+    mma path splits the dq pass over the kv range and sums the partials in a
+    fixed order; both paths match the plain version and repeat their bits."""
+    B, H, K, Sq, T, dh = 1, 2, 2, 64, 1500, 64
+    q, k, v = _attn_inputs(gen, B, H, K, Sq, T, dh, dtype)
+    do = torch.randn(B, Sq, H, dh, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    o, lse = ops.flash_attention(q, k, v, causal=False, return_lse=True)
+    path = k1b.plan_call(q, k, v, o, do)
+    assert path == ("mma" if dtype == torch.bfloat16 else "fma")
+    if path == "mma":
+        assert k1b.dq_plan(B, H, Sq, T, torch.cuda.get_device_properties(0)
+                           .multi_processor_count).splits >= 2
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=False)
+    for a, b in zip(got, want):
+        atol = _tol(dtype)["atol"] * min(1.0, float(b.float().abs().max()))
+        torch.testing.assert_close(a, b, atol=atol, rtol=_tol(dtype)["rtol"])
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("Sq,T,causal", [(130, 130, True), (64, 1500, False)])
+def test_flash_attention_bwd_in_a_cuda_graph(gen, Sq, T, causal):
+    """The mma path forks its dq pass onto a second stream and joins it: a
+    captured backward (split dq included) replays to the eager call's bits,
+    on new inputs copied into the captured ones."""
+    B, H, K, dh = 1, 4, 2, 64
+    q, k, v = _attn_inputs(gen, B, H, K, Sq, T, dh, torch.bfloat16)
+    do = torch.randn(B, Sq, H, dh, generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+    o, lse = ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert k1b.plan_call(q, k, v, o, do) == "mma"
+    run = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    do.copy_(torch.randn(B, Sq, H, dh, generator=gen, device="cuda").to(torch.bfloat16)
+             .transpose(1, 2))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = run()
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

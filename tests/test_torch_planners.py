@@ -6,7 +6,9 @@ bf16, the D-splits cover D exactly, and float32 always takes the FMA path;
 K2's cache splits come from the static shapes alone and cover the cache
 once; every moe config's prefill takes K4's wgmma path and its decode the
 mma path, whose D splits come from the static shapes alone and cover D
-once; K5's column slices come from (B, H, dh, SMs) alone.
+once; K5's column slices come from (B, H, dh, SMs) alone; K1's backward
+takes its tensor-core path for the model's bf16 layouts, and splits its dq
+pass over the kv range from the static shapes alone.
 """
 
 import inspect
@@ -17,6 +19,7 @@ import torch
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.kernels import decode_attention as k2
 from repro_torch.kernels import flash_attention as k1
+from repro_torch.kernels import flash_attention_bwd as k1b
 from repro_torch.kernels import int8_matmul as k3
 from repro_torch.kernels import moe_gmm as k4
 from repro_torch.kernels import rwkv6_scan as k5
@@ -88,6 +91,71 @@ def test_flash_plan(dh):
     assert k1.plan_call(qf, kf, kf) == "fma"       # float32: true float32
     odd = torch.zeros(B, S, H, dh + 1, dtype=torch.bfloat16)[..., :dh].transpose(1, 2)
     assert k1.plan_call(odd, k, k) == "fma"        # rows not 16-byte aligned
+
+
+@pytest.mark.parametrize("dh", [32, 64, 80, 128])
+def test_flash_bwd_plan(dh):
+    """The backward's path from q, k, v, o and do: the model's bf16 views
+    (o as K1 forward returns it, do as autograd hands it over) take "mma"."""
+    B, S, H, K = 2, 130, 4, 2
+    q = torch.zeros(B, S, H, dh, dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.zeros(B, S, K, dh, dtype=torch.bfloat16).transpose(1, 2)
+    o = torch.zeros(B, S, H, dh, dtype=torch.bfloat16).transpose(1, 2)
+    do = torch.zeros(B, H, S, dh, dtype=torch.bfloat16)   # a contiguous gradient
+    assert k1b.plan_call(q, k, k, o, do) == "mma"
+    assert k1b.plan(torch.bfloat16, True) == "mma"
+    f = [t.float() for t in (q, k, k, o, do)]
+    assert k1b.plan_call(*f) == "fma"                      # float32: true float32
+    assert k1b.plan(torch.float32, True) == "fma"
+    odd = torch.zeros(B, S, H, dh + 1, dtype=torch.bfloat16)[..., :dh].transpose(1, 2)
+    for i in range(5):                                     # any one operand's rows unaligned
+        ts = [q, k, k, o, do]
+        ts[i] = odd if i in (0, 3, 4) else odd[:, :K]
+        assert k1b.plan_call(*ts) == "fma"
+    shifted = torch.zeros(B * S * H * dh + 4, dtype=torch.bfloat16)[4:].view(B, S, H, dh)
+    assert k1b.plan_call(q, k, k, o, shifted.transpose(1, 2)) == "fma"   # base 8 bytes in
+
+
+# (B, H, Sq, T) of the four training shapes of chip_smoke.py's TRAIN_ATTN_CASES
+TRAIN_BWD_SHAPES = {"minitron-4b": (2, 24, 512, 512), "zamba2-2.7b": (2, 32, 512, 512),
+                    "whisper-small encoder": (2, 12, 1500, 1500),
+                    "whisper-small cross": (2, 12, 64, 1500)}
+
+
+def _dq_plan_covers(p, T):
+    assert p.splits >= 1 and p.chunk % k1b.TILE == 0
+    assert p.splits * p.chunk >= T > (p.splits - 1) * p.chunk   # no empty split
+
+
+@pytest.mark.parametrize("what", sorted(TRAIN_BWD_SHAPES))
+def test_flash_bwd_dq_plan_at_the_training_shapes(what):
+    """One split where the q tiles fill the card (minitron's 384 blocks);
+    whisper's cross attention (24 blocks) is split to fill it.  The plan sees
+    the static shapes and the SM count, never a tensor."""
+    assert list(inspect.signature(k1b.dq_plan).parameters) == ["B", "H", "Sq", "T", "sms"]
+    B, H, Sq, T = TRAIN_BWD_SHAPES[what]
+    p = k1b.dq_plan(B, H, Sq, T, SMS)
+    _dq_plan_covers(p, T)
+    blocks = B * H * -(-Sq // k1b.TILE)
+    if what == "whisper-small cross":
+        assert blocks == 24 and p.splits >= 2 and blocks * p.splits >= SMS
+    else:
+        assert p == k1b.DqPlan(1, -(-T // k1b.TILE) * k1b.TILE)
+
+
+@pytest.mark.parametrize("B,H,Sq,T", [(1, 1, 1, 1), (1, 2, 64, 1500), (2, 12, 64, 1500),
+                                      (1, 4, 130, 130), (3, 5, 64, 65), (2, 32, 512, 512),
+                                      (1, 1, 64, 100000)])
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_flash_bwd_dq_plan(B, H, Sq, T, sms):
+    p = k1b.dq_plan(B, H, Sq, T, sms)
+    _dq_plan_covers(p, T)
+    blocks, kv_tiles = B * H * -(-Sq // k1b.TILE), -(-T // k1b.TILE)
+    if blocks >= sms:
+        assert p.splits == 1
+    else:   # enough blocks to fill the card, where the kv range has the tiles for them
+        assert blocks * p.splits >= min(k1b.BLOCKS_PER_SM * sms, blocks * kv_tiles) // 2
+        assert blocks * p.splits <= max(k1b.BLOCKS_PER_SM * sms + blocks, blocks)
 
 
 @pytest.mark.parametrize("B,K,S", [(1, 1, 1), (1, 1, 32), (2, 2, 33), (3, 4, 96),
