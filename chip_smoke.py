@@ -94,14 +94,23 @@ Phases, each printed as one JSON line:
                 versions at the training shapes (minitron-4b B2 S512;
                 zamba2's dh 80, window 4096; whisper-small's encoder and
                 cross attention), bf16 timed (SDPA forward, and forward +
-                backward, as the yardsticks) and f32; one f32 train step of
-                minitron-4b, qwen3-8b, qwen2-vl-2b, zamba2-2.7b and
-                whisper-small -smoke on the card against the CPU (loss 1e-4,
-                gradients 1e-3, the step's update held to the AdamW rule),
-                mixtral and rwkv6 refusing the card; full-width minitron-4b
-                (32 layers, bf16, B 2, S 512): a warm-up step, then 5 AdamW
-                steps from random weights under the card's energy counter,
-                then one step under torch.profiler by part (train_run line);
+                backward, as the yardsticks) and f32; K4's backward at
+                mixtral-8x7b's training gate/up and down (C 320; uniform
+                routing and empty experts) and at C 24, bf16 (timed beside
+                torch.bmm, dx and dw also alone) and f32, and K5's backward
+                at rwkv6-3b's (2, 40, 512, 64) and at T 200, f32, each run
+                twice for identical bits; one f32 train step of minitron-4b,
+                qwen3-8b, qwen2-vl-2b, zamba2-2.7b, whisper-small,
+                mixtral-8x7b, arctic-480b and rwkv6-3b -smoke on the card
+                against the CPU (loss 1e-4, gradients 1e-3, the step's update
+                held to the AdamW rule; each family's kernels launched,
+                forward and backward); full width, bf16, B 2, S 512, from
+                random weights: minitron-4b (32 layers, 5 steps), rwkv6-3b
+                (32 layers, 3 steps) and mixtral-8x7b (3 of 32 layers, 3
+                steps): a warm-up step, then the AdamW steps under the
+                card's energy counter, then one step under torch.profiler by
+                part (one train_run line each; K1, K4, K5 and their
+                backward kernels counted per layer and step);
                 examples/train_small.py's flow (a ~100M qwen3, 200 steps, the
                 held-out loss, a checkpoint loaded and served through SI2);
                 python -m repro_torch.launch.train at smoke size
@@ -144,12 +153,18 @@ KERNEL_SOURCES = {
                 "src/repro/kernels/moe_gmm.py:41"),
     "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:56"),
-    # the TPU kernel K1 has no backward; this one stands for the custom VJP's rule
+    # the TPU kernels have no backward; these stand for the JAX package's VJPs:
+    # K1's custom VJP rule, autodiff of the expert einsums and of the WKV lax.scan
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                             "src/repro/models/attention.py:102"),
+    "moe_gmm_bwd": ("src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
+                    "src/repro/models/moe.py:93"),
+    "rwkv6_scan_bwd": ("src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+                       "src/repro/models/ssm.py:116"),
 }
-# the kernels every serving path launches (the backward only trains)
-SERVE_KERNELS = tuple(k for k in KERNEL_SOURCES if k != "flash_attention_bwd")
+BACKWARD_KERNELS = ("flash_attention_bwd", "moe_gmm_bwd", "rwkv6_scan_bwd")
+# the kernels every serving path launches (the backward kernels only train)
+SERVE_KERNELS = tuple(k for k in KERNEL_SOURCES if k not in BACKWARD_KERNELS)
 # the serve phase's archs: (name, layers served or None for all, formats,
 # what differs from phase_serve's defaults)
 SERVE_ARCHS = (
@@ -271,7 +286,8 @@ def device_us(fns: dict, iters: int = 10) -> dict:
 # the port's kernels by their CUDA function names (kernels/csrc/*.cu)
 PORT_KERNEL_PREFIX = {"flash_attention": "flash_", "decode_attention": "decode_",
                       "int8_matmul": "int8_", "moe_gmm": "gmm_", "rwkv6_scan": "wkv_",
-                      "flash_attention_bwd": "attn_bwd_"}
+                      "flash_attention_bwd": "attn_bwd_", "moe_gmm_bwd": "gmmbwd_",
+                      "rwkv6_scan_bwd": "wkvbwd_"}
 
 
 def port_kernel(key: str):
@@ -669,7 +685,8 @@ def emit_case(kernel: str, case: dict) -> None:
     keys = ("arch", "shape", "window", "group_sizes", "dtype", "path", "splits", "plan",
             "max_abs_err", "ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms", "factor",
             "graph_factor", "device_us", "kernel_device_ms", "library_device_ms", "dq_splits",
-            "library_fwd_bwd_ms", "library_fwd_bwd_device_ms", "device_factor")
+            "library_fwd_bwd_ms", "library_fwd_bwd_device_ms", "device_factor", "ds_final",
+            "of_bound", "dx", "dw", "forward_ms", "forward_with_checkpoints_ms")
     print(f"[{kernel}] " + json.dumps({k: case[k] for k in keys if k in case}),
           file=sys.stderr, flush=True)
 
@@ -2285,13 +2302,26 @@ TRAIN_ATTN_CASES = (
     (2, 32, 32, 512, 512, 80, True, 4096, "zamba2-2.7b shared block"),
     (2, 12, 12, 1500, 1500, 64, True, None, "whisper-small encoder"),
     (2, 12, 12, 64, 1500, 64, False, None, "whisper-small cross attention"))
-# the families whose every kernel has a backward: trained card against CPU
+# one smoke arch of each family (three of dense/vlm, arctic's dense residual
+# beside mixtral): trained card against CPU
 TRAIN_SMOKE_ARCHS = ("minitron-4b-smoke", "qwen3-8b-smoke", "qwen2-vl-2b-smoke",
-                     "zamba2-2.7b-smoke", "whisper-small-smoke")
+                     "zamba2-2.7b-smoke", "whisper-small-smoke", "mixtral-8x7b-smoke",
+                     "arctic-480b-smoke", "rwkv6-3b-smoke")
+# the full-width train runs: (arch, layers trained or None for all, steps)
+TRAIN_FULL_WIDTH = (
+    ("minitron-4b", None, 5),
+    # 32 layers, 3.06 B parameters: ~46 GB at PR 20's 14.9 bytes a trained one
+    ("rwkv6-3b", None, 3),
+    # 3 of 32 layers, 4.62 B parameters: ~69 GB; 4 layers (6.07 B) would not fit
+    ("mixtral-8x7b", 3, 3),
+)
 TRAIN_LOSS_ATOL, TRAIN_GRAD_ATOL = 1e-4, 1e-3
 TRAIN_UPDATE_ATOL = 1e-6   # an f32 parameter after one step; the step moves it ~lr (3e-4)
 # torch.profiler's kernels of a train step by part (kernel-name fragments)
+# (by the port's kernel prefixes first, so that no "gemm" fragment takes K4's)
 TRAIN_PARTS = (("k1_fwd", ("namespace)::flash_",)), ("k1_bwd", ("namespace)::attn_bwd_",)),
+               ("k4_fwd", ("namespace)::gmm_",)), ("k4_bwd", ("namespace)::gmmbwd_",)),
+               ("k5_fwd", ("namespace)::wkv_",)), ("k5_bwd", ("namespace)::wkvbwd_",)),
                ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
                ("loss", ("softmax", "SoftMax", "gather", "nll")))
 
@@ -2385,6 +2415,154 @@ def _train_attention_cases(seed: int) -> tuple:
     return fwd_cases, bwd_cases
 
 
+def _moe_gmm_bwd_cases(seed: int) -> list:
+    """K4's backward against its plain version: mixtral-8x7b's training gate/up
+    and down (B 2 x S 512, top-2: C 320, 2048 routed rows) with the group
+    sizes a uniform router gives and with empty experts, bf16 (timed: both
+    gradients, then dx and dw alone, each beside torch.bmm over every expert)
+    and f32; and a C <= 32 shape (dx on wgmma, one short row tile).  Two
+    calls must give the same bits.  Bound, each gradient alone by what it
+    needs: dx the weights of experts with live rows and the live rows of dy
+    read once, dx written once; dw the live rows of x and dy read once, dw
+    written once; both together the union."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import moe_gmm_bwd as k4b
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(seed + 22)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 22)
+    uniform = np.minimum(rng.multinomial(2048, [1 / 8] * 8), 320)
+    empty = rng.integers(0, 321, 8)
+    empty[[0, 3]] = 0
+    empty[5] = 320
+    small = np.array([24, 0, 7, 13, 0, 24, 1, 19, 0, 3, 24, 24, 0, 0, 11, 2])
+    shapes = [  # (E, C, D, F, group sizes, dtypes, timed)
+        (8, 320, 4096, 14336, uniform, (torch.bfloat16, torch.float32), True),    # gate / up
+        (8, 320, 14336, 4096, uniform, (torch.bfloat16, torch.float32), True),    # down
+        (8, 320, 4096, 14336, empty, (torch.bfloat16,), False),
+        (8, 320, 14336, 4096, empty, (torch.bfloat16,), False),
+        (16, 24, 1024, 512, small, (torch.bfloat16, torch.float32), False),      # C <= 32
+    ]
+    cases = []
+    for (E, C, D, F, gs_np, dtypes, is_timed) in shapes:
+        gs = torch.tensor(gs_np, dtype=torch.int32, device="cuda")
+        for dtype in dtypes:
+            x = torch.randn(E, C, D, generator=g, device="cuda").to(dtype)
+            w = (torch.randn(E, D, F, generator=g, device="cuda") * D ** -0.5).to(dtype)
+            dy = torch.randn(E, C, F, generator=g, device="cuda").to(dtype)
+            got = ops.moe_gmm_bwd(x, w, gs, dy)
+            want = ref.moe_gmm_bwd_ref(x, w, gs, dy)
+            tag = f"moe_gmm_bwd {E, C, D, F} {dtype}"
+            err = max(check_grad(f"{tag} {n}", a, b, *_tol(dtype))
+                      for n, a, b in zip(("dx", "dw"), got, want))
+            again = ops.moe_gmm_bwd(x, w, gs, dy)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{tag}: two calls differ")
+            p = k4b.plan_call(x, w, dy)
+            case = {"shape": [E, C, D, F], "group_sizes": gs_np.tolist(),
+                    "dtype": str(dtype)[6:], "path": {"dx": p.dx, "dw": p.dw}, "splits": 1,
+                    "max_abs_err": err, "bit_identical": True}
+            del want, again
+            if is_timed and dtype == torch.bfloat16:
+                es = x.element_size()
+                rows = int(gs_np.sum())
+                live_experts = int((gs_np > 0).sum())
+                x_live, dy_live = rows * D * es, rows * F * es
+                w_live = live_experts * D * F * es
+                dx_out, dw_out = E * C * D * es, E * D * F * es
+                flops = 2 * rows * D * F
+                live = torch.arange(C, device="cuda")[None, :, None] < gs[:, None, None]
+                xz, dyz = torch.where(live, x, 0), torch.where(live, dy, 0)
+                wt = w.transpose(1, 2)
+                timed(case, lambda: ops.moe_gmm_bwd(x, w, gs, dy),
+                      lambda: ref.moe_gmm_bwd_ref(x, w, gs, dy),
+                      lambda: (torch.bmm(dyz, wt), torch.bmm(xz.transpose(1, 2), dy)),
+                      x_live + w_live + dy_live + 4 * E + dx_out + dw_out, 2 * flops)
+                case["of_bound"] = case["ms"] / case["bound_ms"]
+                # each gradient alone, beside its torch.bmm
+                for name, kw, lib, nbytes in (
+                        ("dx", dict(need_dw=False), lambda: torch.bmm(dyz, wt),
+                         w_live + dy_live + 4 * E + dx_out),
+                        ("dw", dict(need_dx=False), lambda: torch.bmm(xz.transpose(1, 2), dy),
+                         x_live + dy_live + 4 * E + dw_out)):
+                    fn = lambda kw=kw: ops.moe_gmm_bwd(x, w, gs, dy, **kw)  # noqa: E731
+                    alone = {"ms": time_ms(fn), "graph_ms": time_ms(fn, graph=True),
+                             "library_ms": time_ms(lib),
+                             "library_graph_ms": time_ms(lib, graph=True)}
+                    alone["bound_ms"], alone["bound_by"] = bound(nbytes, flops, case["dtype"])
+                    alone["of_bound"] = alone["ms"] / alone["bound_ms"]
+                    case[name] = alone
+            emit_case("moe_gmm_bwd", case)
+            cases.append(case)
+            del x, w, dy, got
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _rwkv6_scan_bwd_cases(seed: int) -> list:
+    """K5's backward against its plain version, float32 as the model feeds it:
+    rwkv6-3b's training shape (B 2, H 40, T 512, dh 64) with no final-state
+    gradient (as in training: timed) and with one, and a T that is not a
+    multiple of the 16-step checkpoints (T 200) with one; r/k/v/w and dout as
+    (B, H, T, dh) views of (B, T, H, dh) memory, as the model passes them.
+    Two calls must give the same bits.  No single PyTorch call computes the
+    reverse scan: no library time.  Bound: r, k, v, w, dout, u and s0 read
+    once, dr, dk, dv, dw, du and ds0 written once (the checkpoints are the
+    design's, not the function's); 15 dh^2 operations a step (the states
+    recomputed once included)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as k5
+    from repro_torch.kernels import rwkv6_scan_bwd as k5b
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 23)
+
+    def rnd(*shape, scale=0.5):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    cases = []
+    for (B, H, T, dh), with_dsf, is_timed in (((2, 40, 512, 64), False, True),
+                                              ((2, 40, 512, 64), True, False),
+                                              ((2, 40, 200, 64), True, False)):
+        r, k, v = (rnd(B, T, H, dh).transpose(1, 2) for _ in range(3))
+        w = torch.sigmoid(rnd(B, T, H, dh, scale=1.0)).transpose(1, 2)
+        u, s0 = rnd(H, dh, scale=0.3), rnd(B, H, dh, dh, scale=0.1)
+        dout = rnd(B, T, H, dh, scale=1.0).transpose(1, 2)
+        dsf = rnd(B, H, dh, dh) if with_dsf else None
+        ck = torch.empty(k5.checkpoint_shape(B, H, T, dh), device="cuda")
+        ops.rwkv6_scan(r, k, v, w, u, s0, checkpoints=ck)
+        got = ops.rwkv6_scan_bwd(r, k, v, w, u, s0, dout, dsf, checkpoints=ck)
+        want = ref.rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dout, dsf)
+        tag = f"rwkv6_scan_bwd {B, H, T, dh} ds_final={with_dsf}"
+        err = max(check_grad(f"{tag} {n}", a, b, 2e-4, 2e-4)
+                  for n, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want))
+        again = ops.rwkv6_scan_bwd(r, k, v, w, u, s0, dout, dsf, checkpoints=ck)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: two calls differ")
+        case = {"shape": [B, H, T, dh], "dtype": "float32", "ds_final": with_dsf,
+                "plan": k5b.plan(B, H, T, dh)._asdict(), "path": "fma", "max_abs_err": err,
+                "bit_identical": True}
+        if is_timed:
+            n = B * H * T * dh
+            nbytes = 4 * (9 * n + 2 * H * dh + 2 * B * H * dh * dh)
+            timed(case, lambda: ops.rwkv6_scan_bwd(r, k, v, w, u, s0, dout, dsf,
+                                                   checkpoints=ck),
+                  lambda: ref.rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dout, dsf), None,
+                  nbytes, 15 * B * H * T * dh * dh)
+            case["of_bound"] = case["ms"] / case["bound_ms"]
+            case["forward_with_checkpoints_ms"] = time_ms(
+                lambda: ops.rwkv6_scan(r, k, v, w, u, s0, checkpoints=ck))
+            case["forward_ms"] = time_ms(lambda: ops.rwkv6_scan(r, k, v, w, u, s0))
+        emit_case("rwkv6_scan_bwd", case)
+        cases.append(case)
+    return cases
+
+
 def _numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
@@ -2422,10 +2600,22 @@ def _first_update_err(opt_cfg, lr: float, before, params, m, v) -> float:
     return err
 
 
+def _train_kernels(cfg) -> tuple:
+    """The kernels a train step of ``cfg`` must launch, forward and backward
+    by pairs: K1 where it has attention, K4 for moe, K5 for rwkv6 (which has
+    no attention: it must launch no K1)."""
+    kernels = () if cfg.family == "ssm" else ("flash_attention", "flash_attention_bwd")
+    if cfg.is_moe:
+        kernels += ("moe_gmm", "moe_gmm_bwd")
+    if cfg.family == "ssm":
+        kernels += ("rwkv6_scan", "rwkv6_scan_bwd")
+    return kernels
+
+
 def _train_smoke(seed: int) -> dict:
-    """One f32 train step of each smoke arch whose kernels all have a
-    backward, on the card and on the CPU from the same numpy weights and
-    batch; moe and rwkv6 must refuse to train on the card."""
+    """One f32 train step of a smoke arch of every family (moe and rwkv6
+    included), on the card and on the CPU from the same numpy weights and
+    batch; each must launch its family's kernels, forward and backward."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -2467,21 +2657,62 @@ def _train_smoke(seed: int) -> dict:
             raise AssertionError(f"train {arch}: card vs CPU loss {loss_err} "
                                  f"{step_loss_err}, grads {grad_err} {step_grad_err}; "
                                  f"update {update_err}")
-        if not (launched["flash_attention"] and launched["flash_attention_bwd"]):
-            raise AssertionError(f"train {arch}: kernels launched {launched}")
+        must = _train_kernels(cfg)
+        if not all(launched[k] for k in must) or (
+                cfg.family == "ssm" and launched["flash_attention"]):
+            raise AssertionError(f"train {arch}: kernels launched {launched}, want {must}")
         out["archs"][arch] = {"loss": res["cuda"][0], "loss_err": loss_err,
                               "step_loss_err": step_loss_err, "grad_max_abs_err": grad_err,
                               "step_grad_max_abs_err": step_grad_err,
                               "update_max_abs_err": update_err, "launches": launched}
-    out["refused"] = {}
-    for arch in ("mixtral-8x7b-smoke", "rwkv6-3b-smoke"):
-        try:
-            trainer.make_train_step(get_arch(arch), opt_cfg)
-        except NotImplementedError as e:
-            out["refused"][arch] = str(e)
-        else:
-            raise AssertionError(f"train {arch}: make_train_step did not refuse the card")
     torch.cuda.empty_cache()
+    return out
+
+
+def _moe_bwd_in_model(params, cfg, batch) -> dict:
+    """K4's backward inside one bf16 step of ``cfg``, held against its plain
+    version on the same tensors: loss_and_grads runs with ops.moe_gmm_bwd
+    recording the arguments and results of its first three calls (the last
+    moe layer's down, up and gate products, in the model's own layouts,
+    routing and dy), then each gradient is checked against moe_gmm_bwd_ref
+    (2e-2, atol scaled to the largest |want|)."""
+    import torch
+
+    from repro_torch.kernels import moe_gmm_bwd as k4b
+    from repro_torch.kernels import ops, ref
+    from repro_torch.training import trainer
+
+    kernel, calls = ops.moe_gmm_bwd, []
+
+    def recording(x, w, group_sizes, dy, **kw):
+        got = kernel(x, w, group_sizes, dy, **kw)
+        if len(calls) < 3:
+            calls.append((x, w, group_sizes, dy, kw, got))
+        return got
+
+    ops.moe_gmm_bwd = recording
+    try:
+        trainer.loss_and_grads(params, cfg, batch)
+    finally:
+        ops.moe_gmm_bwd = kernel
+    if len(calls) != 3:
+        raise AssertionError(f"moe backward in the model: {len(calls)} calls recorded")
+    out = {"calls": []}
+    for i, (x, w, gs, dy, kw, got) in enumerate(calls):
+        want = ref.moe_gmm_bwd_ref(x, w, gs, dy)
+        errs = {n: check_grad(f"moe_gmm_bwd in {cfg.name} call {i} {n}", a, b,
+                              *_tol(x.dtype))
+                for n, a, b in zip(("dx", "dw"), got, want) if a is not None}
+        out["calls"].append({"shape": list(x.shape) + [w.shape[2]], "dtype": str(x.dtype)[6:],
+                             "path": k4b.plan_call(x, w, dy)._asdict(),
+                             "dy_strides": list(dy.stride()), "group_sizes": gs.tolist(),
+                             "max_abs_err": errs,
+                             "max_abs_want": {n: float(b.float().abs().max())
+                                              for n, b in zip(("dx", "dw"), want)}})
+        del want
+    del calls
+    torch.cuda.empty_cache()
+    print(f"[moe_gmm_bwd in model] {json.dumps(out)}", file=sys.stderr, flush=True)
     return out
 
 
@@ -2512,13 +2743,21 @@ def _profile_parts(fn) -> tuple:
     return result, parts, names
 
 
-def _train_full_width(seed: int, card, batch: int = 2, seq: int = 512,
-                      steps: int = 5) -> dict:
-    """Full-width minitron-4b (32 layers, bf16) from random weights: one
+def _train_full_width(seed: int, card, arch: str, layers=None, steps: int = 5,
+                      batch: int = 2, seq: int = 512) -> dict:
+    """``arch`` at full width (bf16; ``layers`` of its layers where all do
+    not fit the card: the cut is ``depth_cut``) from random weights: one
     warm-up train step, then ``steps`` on SyntheticLM data, timed on the host
     clock after a synchronise, under the card's energy counter (ms/step,
     tokens/s and J/token are over these ``steps``); then one more step under
-    torch.profiler, split into forward + backward and the AdamW update."""
+    torch.profiler, split into forward + backward by part and the AdamW
+    update.  The run fails on a loss that is not finite, parameters that do
+    not move, a kernel launched other than once per call of its layers a
+    step (K1 and its backward per attention layer, K4 and its backward three
+    times per moe layer, K5 and its backward per rwkv6 layer), or a bf16
+    backward kernel off the tensor cores; a moe arch's run also holds the
+    last moe layer's three K4 backward calls of one more step against the
+    plain version on their own tensors (``_moe_bwd_in_model``)."""
     import gc
 
     import torch
@@ -2529,7 +2768,11 @@ def _train_full_width(seed: int, card, batch: int = 2, seq: int = 512,
     from repro_torch.training import optim, trainer
     from repro_torch.training.data import DataConfig, SyntheticLM
 
-    cfg = get_arch("minitron-4b")
+    cfg = get_arch(arch)
+    depth_cut = None
+    if layers is not None:
+        depth_cut = f"{layers} of {cfg.num_layers} layers"
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2543,7 +2786,10 @@ def _train_full_width(seed: int, card, batch: int = 2, seq: int = 512,
                                       device="cuda")
     data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=seed)).batches()
     batches = [next(data) for _ in range(steps + 2)]   # data is set-up, made first
-    probe = params["layers"]["attn"]["wq"][0, :8, :8].clone()
+    # the largest leaf (the layers' stacked weights), 8 x 8 of its first slice
+    big = max(optim.tree_leaves(params), key=lambda t: t.numel())
+    probe = lambda: big.reshape(-1, big.shape[-1])[:8, :8].clone()  # noqa: E731
+    before = probe()
     losses, step_ms = [], []
 
     def run(bs):
@@ -2561,28 +2807,37 @@ def _train_full_width(seed: int, card, batch: int = 2, seq: int = 512,
     peak = torch.cuda.max_memory_allocated()
     tokens = steps * batch * seq
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"full-width train: losses {losses}")
-    if torch.equal(probe, params["layers"]["attn"]["wq"][0, :8, :8]):
-        raise AssertionError("full-width train: the parameters did not change")
-    if launches["flash_attention"] != steps * cfg.num_layers or \
-            launches["flash_attention_bwd"] != steps * cfg.num_layers:
-        raise AssertionError(f"full-width train: launches {launches}")
+        raise AssertionError(f"full-width train {arch}: losses {losses}")
+    if torch.equal(before, probe()):
+        raise AssertionError(f"full-width train {arch}: the parameters did not change")
+    calls = {"flash_attention": cfg.num_layers, "moe_gmm": 3 * cfg.num_layers,
+             "rwkv6_scan": cfg.num_layers}
+    want = {k: steps * calls[k.removesuffix("_bwd")] for k in _train_kernels(cfg)}
+    if any(launches[k] != n for k, n in want.items()) or \
+            (cfg.family == "ssm" and launches["flash_attention"]):
+        raise AssertionError(f"full-width train {arch}: launches {launches}, want {want}")
     tb = trainer.batch_to(batches[steps + 1], "cuda")
     (_, _, grads), fb, fb_names = _profile_parts(
         lambda: trainer.loss_and_grads(params, cfg, tb))
-    # every backward call of the bf16 model plans the tensor-core path
-    fma = [n for n in fb_names["k1_bwd"] if "attn_bwd_mma_" not in n
+    # every bf16 backward call plans its tensor-core path
+    off = [n for n in fb_names["k1_bwd"] if "attn_bwd_mma_" not in n
            and "attn_bwd_delta" not in n and "attn_bwd_dq_reduce" not in n]
-    if fma or not fb_names["k1_bwd"]:
-        raise AssertionError(f"full-width train: K1 backward kernels {fb_names['k1_bwd']}")
+    off += [n for n in fb_names["k4_bwd"] if "gmmbwd_fma" in n]
+    if off or any(not fb_names[part] for part, kernel in (
+            ("k1_bwd", "flash_attention_bwd"), ("k4_bwd", "moe_gmm_bwd"),
+            ("k5_bwd", "rwkv6_scan_bwd")) if kernel in want):
+        raise AssertionError(f"full-width train {arch}: backward kernels off the tensor "
+                             f"cores {off}, or missing: {fb_names}")
     _, upd, _ = _profile_parts(lambda: optim.adamw_update(
         optim.AdamWConfig(warmup_steps=1, total_steps=steps), params, grads, opt_state))
+    del grads
+    moe_check = _moe_bwd_in_model(params, cfg, tb) if cfg.is_moe else None
     breakdown = dict(fb, adamw=sum(upd.values()))
     total = sum(breakdown.values())
     steady = step_ms[1:]
     out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": str(cfg.torch_dtype)[6:],
-           "batch": batch, "seq": seq, "steps": steps, "warmup_steps": 1, "depth_cut": None,
-           "init_s": init_s,
+           "batch": batch, "seq": seq, "steps": steps, "warmup_steps": 1,
+           "depth_cut": depth_cut, "init_s": init_s,
            "params": sum(t.numel() for t in optim.tree_leaves(params)),
            "losses": losses, "step_ms": step_ms,
            "ms_per_step": sum(steady) / len(steady),
@@ -2590,10 +2845,11 @@ def _train_full_width(seed: int, card, batch: int = 2, seq: int = 512,
            "max_memory_allocated": peak, "card_j": energy["j"], "card_s": energy["s"],
            "card_w": energy["w"], "card_j_per_token": energy["j"] / tokens,
            "energy_method": card.method, "launches": launches,
+           "moe_gmm_bwd_in_model": moe_check,
            "device_us": breakdown, "device_us_total": total,
-           "k1_bwd_kernels_us": fb_names["k1_bwd"],
+           "backward_kernels_us": {p: fb_names[p] for p in ("k1_bwd", "k4_bwd", "k5_bwd")},
            "device_share": {k: v / total for k, v in breakdown.items()}}
-    del params, opt_state, grads, step_fn
+    del params, opt_state, step_fn, big
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2680,27 +2936,33 @@ def _train_cli() -> dict:
 
 
 def phase_train(seed: int) -> dict:
-    """K1 with lse and K1's backward against their plain versions; smoke train
-    steps card vs CPU; full-width minitron-4b; the train_small flow; the CLI."""
+    """K1 with lse and the three backward kernels against their plain
+    versions; smoke train steps card vs CPU; the full-width runs
+    (TRAIN_FULL_WIDTH); the train_small flow; the CLI."""
     t_phase = time.perf_counter()
     out = {"phase": "train"}
     out["flash_attention_lse"], out["flash_attention_bwd"] = _train_attention_cases(seed)
+    out["moe_gmm_bwd"] = _moe_gmm_bwd_cases(seed)
+    out["rwkv6_scan_bwd"] = _rwkv6_scan_bwd_cases(seed)
     out["smoke"] = _train_smoke(seed)
     card = CardEnergy()
     try:
-        out["full_width"] = _train_full_width(seed, card)
+        out["full_width"] = []
+        for arch, layers, steps in TRAIN_FULL_WIDTH:
+            run = _train_full_width(seed, card, arch, layers, steps)
+            emit(dict(run, phase="train_run"))
+            out["full_width"].append(run)
     finally:
         card.close()
-    emit(dict(out["full_width"], phase="train_run"))
     out["train_small"] = _train_small(seed)
     out["cli"] = _train_cli()
-    # the main path's launches: the full-width run's and train_small's loops
-    out["launches"] = {k: out["full_width"]["launches"][k] + out["train_small"]["launches"][k]
-                       for k in out["full_width"]["launches"]}
+    # the main path's launches: the full-width runs' and train_small's loops
+    runs = out["full_width"] + [out["train_small"]]
+    out["launches"] = {k: sum(r["launches"][k] for r in runs) for k in KERNEL_SOURCES}
     out["graph_replay_launches"] = dict.fromkeys(out["launches"], 0)
     out["seconds"] = time.perf_counter() - t_phase
     emit({k: v for k, v in out.items() if k not in ("flash_attention_lse",
-                                                    "flash_attention_bwd")})
+                                                    *BACKWARD_KERNELS)})
     return out
 
 
@@ -2717,7 +2979,9 @@ def kernel_line(kernel_cases: dict, serve: dict, schedule: dict, fleet: dict,
                   "decode_attention": [4, 8, 3, 1024, 128],
                   "int8_matmul": [4, 3072, 9216],
                   "moe_gmm": [8, 8, 4096, 14336],
-                  "rwkv6_scan": [4, 40, 1, 64]}
+                  "moe_gmm_bwd": [8, 320, 4096, 14336],
+                  "rwkv6_scan": [4, 40, 1, 64],
+                  "rwkv6_scan_bwd": [2, 40, 512, 64]}
     entries = []
     for name, cases in kernel_cases.items():
         main = next(c for c in cases
@@ -2770,7 +3034,8 @@ def main(argv=None) -> int:
     phase_formats(args.seed)
     train = phase_train(args.seed)
     kernels["flash_attention"] = kernels["flash_attention"] + train["flash_attention_lse"]
-    kernels["flash_attention_bwd"] = train["flash_attention_bwd"]
+    for name in BACKWARD_KERNELS:
+        kernels[name] = train[name]
     emit(kernel_line(kernels, serve, schedule, fleet, api, train))
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention", "int8_matmul",
-           "moe_gmm", "rwkv6_scan")
+           "moe_gmm", "moe_gmm_bwd", "rwkv6_scan", "rwkv6_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DEFAULT_CUDA_HOME = "/usr/local/cuda"

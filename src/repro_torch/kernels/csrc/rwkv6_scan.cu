@@ -44,7 +44,10 @@
 // dh) memory) and the final state to a caller-given tensor, which may be the
 // initial state itself (the decode cache, updated in place: each block reads
 // its own columns of the state before it writes them back, and no other
-// block touches them).
+// block touches them).  Under autograd the wrapper also asks for the
+// state entering every 16-step chunk (ckpt), which the backward recomputes
+// each chunk's states from: each thread writes its state rows as the chunk
+// starts, 42 MB a layer at rwkv6-3b's training shape.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -77,8 +80,9 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(256)
 wkv_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
            const T* __restrict__ w, const float* __restrict__ u, const float* s0,
-           T* __restrict__ out, float* s_final, int T_len, int jb, Seq sr, Seq sk, Seq sv,
-           Seq sw, Seq so, long long s0_b, long long s0_h, long long sf_b, long long sf_h) {
+           T* __restrict__ out, float* s_final, float* __restrict__ ckpt, int T_len, int jb,
+           Seq sr, Seq sk, Seq sv, Seq sw, Seq so, long long s0_b, long long s0_h,
+           long long sf_b, long long sf_h) {
   constexpr int R = 16;                       // key rows of one thread's column share
   constexpr int G = DH / R;                   // row groups: key rows Rg .. Rg + R
   constexpr int E16 = 16 / sizeof(T);         // elements per 16-byte copy
@@ -135,6 +139,11 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict
 
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int buf = ch & 1, t0 = ch * CHUNK, n = min(CHUNK, T_len - t0);
+    if (ckpt != nullptr) {  // the state entering this chunk, for the backward
+      float* cp = ckpt + (((long long)b * gridDim.y + h) * n_chunks + ch) * DH * DH;
+#pragma unroll
+      for (int i = 0; i < R; ++i) cp[(R * grp + i) * DH + j] = S[i];
+    }
     if (ch + 1 < n_chunks) {  // the next chunk lands while this one computes
       stage(buf ^ 1, t0 + CHUNK, min(CHUNK, T_len - t0 - CHUNK));
       cp_async_wait<1>();
@@ -191,25 +200,26 @@ constexpr int wkv_smem_bytes(int jb) {
 
 template <typename T, int DH>
 void launch(const void* r, const void* k, const void* v, const void* w, const void* u,
-            const void* s0, void* out, void* s_final, int B, int H, int T_len, int jb,
-            const Seq* seq, const long long* st, cudaStream_t stream) {
+            const void* s0, void* out, void* s_final, void* ckpt, int B, int H, int T_len,
+            int jb, const Seq* seq, const long long* st, cudaStream_t stream) {
   wkv_kernel<T, DH><<<dim3(DH / jb, H, B), jb * (DH / 16), wkv_smem_bytes<T, DH>(jb), stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(w), static_cast<const float*>(u), static_cast<const float*>(s0),
-      static_cast<T*>(out), static_cast<float*>(s_final), T_len, jb, seq[0], seq[1], seq[2],
+      static_cast<T*>(out), static_cast<float*>(s_final), static_cast<float*>(ckpt), T_len,
+      jb, seq[0], seq[1], seq[2],
       seq[3], seq[4], st[0], st[1], st[2], st[3]);
 }
 
 template <typename T>
 int dispatch_dh(int dh, int jb, const void* r, const void* k, const void* v, const void* w,
-                const void* u, const void* s0, void* out, void* s_final, int B, int H,
-                int T_len, const Seq* seq, const long long* st, cudaStream_t stream) {
+                const void* u, const void* s0, void* out, void* s_final, void* ckpt, int B,
+                int H, int T_len, const Seq* seq, const long long* st, cudaStream_t stream) {
   // jb: a power of two from 8 to dh, so each block's v columns are whole 16-byte copies
   if (jb < 8 || jb > dh || (jb & (jb - 1))) return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
-    case 16: launch<T, 16>(r, k, v, w, u, s0, out, s_final, B, H, T_len, jb, seq, st, stream); break;
-    case 32: launch<T, 32>(r, k, v, w, u, s0, out, s_final, B, H, T_len, jb, seq, st, stream); break;
-    case 64: launch<T, 64>(r, k, v, w, u, s0, out, s_final, B, H, T_len, jb, seq, st, stream); break;
+    case 16: launch<T, 16>(r, k, v, w, u, s0, out, s_final, ckpt, B, H, T_len, jb, seq, st, stream); break;
+    case 32: launch<T, 32>(r, k, v, w, u, s0, out, s_final, ckpt, B, H, T_len, jb, seq, st, stream); break;
+    case 64: launch<T, 64>(r, k, v, w, u, s0, out, s_final, ckpt, B, H, T_len, jb, seq, st, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -221,7 +231,10 @@ int dispatch_dh(int dh, int jb, const void* r, const void* k, const void* v, con
 // stride, 16-byte aligned rows (the wrapper checks); u: (H, dh) f32
 // contiguous; s0 and s_final: (B, H, dh, dh) f32 with strides (b, h) and a
 // contiguous dh x dh block; out: written with strides (b, h, t).  s_final
-// may be s0 itself.  dh is 16, 32 or 64; jb, the value columns of one block,
+// may be s0 itself.  ckpt, when not null: (B, H, ceil(T / 16), dh, dh) f32
+// contiguous, the state entering every 16-step chunk (what the backward,
+// csrc/rwkv6_scan_bwd.cu, recomputes each chunk from); the serving calls
+// pass null.  dh is 16, 32 or 64; jb, the value columns of one block,
 // a power of two from 8 to dh.
 extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v, const void* w,
                               const void* u, const void* s0, void* out, void* s_final,
@@ -230,12 +243,13 @@ extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v, const
                               long long kt, long long vb, long long vh, long long vt,
                               long long wb, long long wh, long long wt, long long ob,
                               long long oh, long long ot, long long s0b, long long s0h,
-                              long long sfb, long long sfh, void* stream) {
+                              long long sfb, long long sfh, void* ckpt, void* stream) {
   const Seq seq[5] = {{rb, rh, rt}, {kb, kh, kt}, {vb, vh, vt}, {wb, wh, wt}, {ob, oh, ot}};
   const long long st[4] = {s0b, s0h, sfb, sfh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_BF16)
-    return dispatch_dh<__nv_bfloat16>(dh, jb, r, k, v, w, u, s0, out, s_final, B, H, T_len,
-                                      seq, st, s);
-  return dispatch_dh<float>(dh, jb, r, k, v, w, u, s0, out, s_final, B, H, T_len, seq, st, s);
+    return dispatch_dh<__nv_bfloat16>(dh, jb, r, k, v, w, u, s0, out, s_final, ckpt, B, H,
+                                      T_len, seq, st, s);
+  return dispatch_dh<float>(dh, jb, r, k, v, w, u, s0, out, s_final, ckpt, B, H, T_len, seq,
+                            st, s);
 }

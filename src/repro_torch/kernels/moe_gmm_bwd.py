@@ -1,0 +1,116 @@
+"""K4 backward wrapper: the gradients of the grouped (expert) GEMM (kernels in
+csrc/moe_gmm_bwd.cu).
+
+For out[e] = x[e] @ w[e] with x (E, C, D), w (E, D, F) and rows at or past
+``group_sizes[e]`` counting as zero, from dy (E, C, F):
+  dx[e] = dy[e] @ w[e]^T, rows at or past group_sizes[e] zero, in x's dtype;
+  dw[e] = x~[e]^T @ dy[e], x~ = x with those rows zeroed, in w's dtype.
+The JAX package has no kernel here: it differentiates the model's expert
+einsums by autodiff.  ``need_dx`` and ``need_dw`` say which gradients to
+compute; the other comes back as None.  group_sizes is read on the device,
+and x, w and dy by stride (unit stride on the last axis).
+
+``plan`` chooses each gradient's path from the dtype alone (nothing is
+tried and nothing falls back):
+  dx  fma    float32 (true float32 FMAs for the parity tests);
+      wgmma  bf16: K4 forward's TMA + wgmma body with w^T read K-major in
+             place (dy and w must be tensor maps, at most WGMMA_MAX_E
+             experts: the wrapper raises otherwise).
+  dw  fma    float32;
+      mma    bf16: mma.sync tiles over the ragged live rows, x and dy
+             through ldmatrix.trans.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.moe_gmm import WGMMA_MAX_E, _map_ok, wgmma_grid
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {"moe_gmm_bwd": ([_P] * 6 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_P],
+                               ctypes.c_int)}
+PATHS = {"fma": 0, "mma": 1, "wgmma": 2}   # csrc/moe_gmm_bwd.cu GBWD_PATH_*
+DW_BK = 32   # live rows of one k-tile of the mma path's dw (csrc T_BK)
+
+
+class Plan(NamedTuple):
+    dx: str   # fma / wgmma
+    dw: str   # fma / mma
+
+
+def plan(dtype: torch.dtype) -> Plan:
+    """The paths of dx and dw for operands of ``dtype``."""
+    return Plan("fma", "fma") if dtype == torch.float32 else Plan("wgmma", "mma")
+
+
+def plan_call(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> Plan:
+    """``plan`` for the tensors of one call."""
+    return plan(x.dtype)
+
+
+def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes, dy: torch.Tensor, *,
+                need_dx: bool = True, need_dw: bool = True):
+    """x: (E, C, D); w: (E, D, F); group_sizes: (E,) int or None; dy: (E, C, F).
+
+    Returns (dx (E, C, D) or None, dw (E, D, F) or None).
+    """
+    if x.device.type == "cpu":
+        dx, dw = ref.moe_gmm_bwd_ref(x, w, group_sizes, dy)
+        return dx if need_dx else None, dw if need_dw else None
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm_bwd: unsupported device {x.device}")
+    if x.dtype not in build.DTYPE_CODES or w.dtype != x.dtype or dy.dtype != x.dtype:
+        raise ValueError("moe_gmm_bwd: x, w and dy must share one dtype, float32 or "
+                         f"bfloat16; got {x.dtype} {w.dtype} {dy.dtype}")
+    if x.ndim != 3 or w.ndim != 3:
+        raise ValueError("moe_gmm_bwd: x (E, C, D), w (E, D, F), dy (E, C, F)")
+    E, C, D = x.shape
+    F = w.shape[2]
+    if w.shape[:2] != (E, D) or dy.shape != (E, C, F):
+        raise ValueError(f"moe_gmm_bwd: shapes {tuple(x.shape)} {tuple(w.shape)} "
+                         f"{tuple(dy.shape)} do not agree")
+    if group_sizes is not None:
+        if group_sizes.shape != (E,):
+            raise ValueError(f"moe_gmm_bwd: group_sizes must be ({E},)")
+        group_sizes = group_sizes.to(torch.int32).contiguous()
+    if not (x.device == w.device == dy.device and (group_sizes is None
+                                                   or group_sizes.device == x.device)):
+        raise ValueError("moe_gmm_bwd: x, w, dy and group_sizes must be on one device")
+    dy = dy if dy.stride(2) == 1 else dy.contiguous()
+    if x.stride(2) != 1 or w.stride(2) != 1:
+        raise ValueError("moe_gmm_bwd: the last axis of x and w must be contiguous")
+    if x.dtype == torch.bfloat16 and any(
+            s % 8 for s in (D, F, x.stride(0), x.stride(1), w.stride(0), w.stride(1),
+                            dy.stride(0), dy.stride(1), x.data_ptr() // 2, w.data_ptr() // 2,
+                            dy.data_ptr() // 2)):
+        raise ValueError("moe_gmm_bwd: bf16 needs D, F and the row strides to be "
+                         "multiples of 8 and 16-byte aligned x, w and dy")
+    if x.dtype == torch.bfloat16 and need_dx and not (
+            E <= WGMMA_MAX_E and _map_ok(dy) and _map_ok(w)):
+        raise ValueError(f"moe_gmm_bwd: bf16 dx reads dy and w as tensor maps, at most "
+                         f"{WGMMA_MAX_E} experts; got E {E}, strides {dy.stride()} "
+                         f"{w.stride()}")
+    dx = torch.empty((E, C, D), dtype=x.dtype, device=x.device) if need_dx else None
+    dw = torch.empty((E, D, F), dtype=w.dtype, device=x.device) if need_dw else None
+    if dx is None and dw is None:
+        return None, None
+    p = plan_call(x, w, dy)
+    lib = build.library("moe_gmm_bwd", _SIGNATURES)
+    code = lib.moe_gmm_bwd(
+        x.data_ptr(), w.data_ptr(),
+        group_sizes.data_ptr() if group_sizes is not None else None, dy.data_ptr(),
+        None if dx is None else dx.data_ptr(), None if dw is None else dw.data_ptr(),
+        build.DTYPE_CODES[x.dtype], E, C, D, F, x.stride(0), x.stride(1), w.stride(0),
+        w.stride(1), dy.stride(0), dy.stride(1), PATHS[p.dx], PATHS[p.dw],
+        wgmma_grid(E, C, D, build.sm_count(x.device.index)), build.current_stream())
+    build.check(lib, code, f"moe_gmm_bwd (dx {p.dx}, dw {p.dw})")
+    moe_gmm_bwd.launches += 1
+    return dx, dw
+
+
+moe_gmm_bwd.launches = 0

@@ -20,11 +20,13 @@ from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd as _flas
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8
 from repro_torch.kernels.int8_matmul import quantize_int8  # noqa: F401 (re-export)
 from repro_torch.kernels.moe_gmm import moe_gmm as _gmm
+from repro_torch.kernels.moe_gmm_bwd import moe_gmm_bwd as _gmm_bwd
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6
+from repro_torch.kernels.rwkv6_scan_bwd import rwkv6_scan_bwd as _rwkv6_bwd
 
 _WRAPPERS = {"flash_attention": _flash, "flash_attention_bwd": _flash_bwd,
              "decode_attention": _decode, "int8_matmul": _int8, "moe_gmm": _gmm,
-             "rwkv6_scan": _rwkv6}
+             "moe_gmm_bwd": _gmm_bwd, "rwkv6_scan": _rwkv6, "rwkv6_scan_bwd": _rwkv6_bwd}
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, block_q=128,
@@ -53,10 +55,27 @@ def moe_gmm(x, w, group_sizes=None, *, block_c=128, block_f=128, block_d=256):
     return _gmm(x, w, group_sizes)
 
 
-def rwkv6_scan(r, k, v, w, u, s0, *, chunk=64, s_out=None):
+def moe_gmm_bwd(x, w, group_sizes, dy, *, need_dx=True, need_dw=True):
+    """(dx, dw) of ``moe_gmm`` from dy (E, C, F), None where not asked for;
+    the JAX package has no kernel of its own here (autodiff of its expert
+    einsums, ``models/moe.py``)."""
+    return _gmm_bwd(x, w, group_sizes, dy, need_dx=need_dx, need_dw=need_dw)
+
+
+def rwkv6_scan(r, k, v, w, u, s0, *, chunk=64, s_out=None, checkpoints=None):
     """``s_out``, beyond the JAX package's arguments: where the final state
-    goes (it may be ``s0``, for an in-place update of a decode cache)."""
-    return _rwkv6(r, k, v, w, u, s0, s_out=s_out)
+    goes (it may be ``s0``, for an in-place update of a decode cache);
+    ``checkpoints``: where the state entering every 16 steps goes, for
+    ``rwkv6_scan_bwd``."""
+    return _rwkv6(r, k, v, w, u, s0, s_out=s_out, checkpoints=checkpoints)
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final=None, *, checkpoints=None):
+    """(dr, dk, dv, dw, du, ds0) of ``rwkv6_scan`` from dout and the final
+    state's gradient; the JAX package has no kernel of its own here (autodiff
+    of its ``lax.scan``, ``models/ssm.py``).  On the card it reads the
+    forward's ``checkpoints``."""
+    return _rwkv6_bwd(r, k, v, w, u, s0, dout, ds_final, checkpoints=checkpoints)
 
 
 def launch_counts() -> Dict[str, int]:

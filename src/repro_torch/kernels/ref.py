@@ -104,18 +104,80 @@ def moe_gmm_ref(x, w, group_sizes=None):
     return torch.einsum("ecd,edf->ecf", xf, w.float()).to(x.dtype)
 
 
-def rwkv6_scan_ref(r, k, v, w, u, s0):
+def moe_gmm_bwd_ref(x, w, group_sizes, dy):
+    """The gradients of ``moe_gmm_ref`` from dy (E, C, F): (dx (E, C, D),
+    dw (E, D, F)) in x's and w's dtypes, the formulas written out in
+    float32: dx[e] = dy[e] w[e]^T with rows at or past group_sizes[e] zero,
+    dw[e] = x~[e]^T dy[e] with x~ = x with those rows zeroed."""
+    xf, dyf = x.float(), dy.float()
+    dx = torch.einsum("ecf,edf->ecd", dyf, w.float())
+    if group_sizes is not None:
+        rows = torch.arange(x.shape[1], device=x.device)[None, :, None]
+        live = rows < group_sizes[:, None, None]
+        xf = torch.where(live, xf, 0.0)
+        dx = torch.where(live, dx, 0.0)
+    dw = torch.einsum("ecd,ecf->edf", xf, dyf)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+WKV_CHECKPOINT_EVERY = 16   # steps between K5's state checkpoints (csrc/rwkv6_scan.cu CHUNK)
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0, checkpoints=None):
     """r/k/v/w: (B, H, T, dh); u: (H, dh); s0: (B, H, dh, dh).
 
     Returns (out (B, H, T, dh) in r's dtype, s_final (B, H, dh, dh) f32),
     stepping the recurrence of the JAX package's ``rwkv6_wkv_step``.
+    ``checkpoints``, if given ((B, H, ceil(T / WKV_CHECKPOINT_EVERY), dh,
+    dh) f32), receives the state entering every chunk of
+    WKV_CHECKPOINT_EVERY steps.
     """
+    every = WKV_CHECKPOINT_EVERY
     uf = u.float()
     s = s0.float()
     outs = []
     for t in range(r.shape[2]):
+        if checkpoints is not None and t % every == 0:
+            checkpoints[:, :, t // every] = s
         r_, k_, v_, w_ = (a[:, :, t].float() for a in (r, k, v, w))
         kv = k_[..., :, None] * v_[..., None, :]
         outs.append(torch.einsum("bhi,bhij->bhj", r_, uf[None, :, :, None] * kv + s))
         s = w_[..., :, None] * s + kv
     return torch.stack(outs, dim=2).to(r.dtype), s
+
+
+def rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dout, ds_final=None):
+    """The gradients of ``rwkv6_scan_ref`` from dout (B, H, T, dh) and the
+    final state's ds_final (B, H, dh, dh) or None (zero): (dr, dk, dv, dw in
+    r's dtype, du (H, dh) in u's, ds0 (B, H, dh, dh) f32).
+
+    The formulas written out in float32: the states S_t entering each step
+    are recomputed forward, then with dS from ds_final, from t = T-1 down:
+    dr_t = u k_t (v_t . dout_t) + S_t dout_t;  dk_t = r_t u (v_t . dout_t)
+    + dS v_t;  dv_t = (r_t . u k_t) dout_t + dS^T k_t;  dw_t = rowsum(dS *
+    S_t);  du += sum_b r_t k_t (v_t . dout_t);  dS <- w_t dS + r_t dout_t^T.
+    """
+    uf = u.float()
+    s = s0.float()
+    states = []
+    for t in range(r.shape[2]):
+        states.append(s)
+        k_, v_, w_ = (a[:, :, t].float() for a in (k, v, w))
+        s = w_[..., :, None] * s + k_[..., :, None] * v_[..., None, :]
+    dS = torch.zeros_like(s) if ds_final is None else ds_final.float()
+    grads = {n: [] for n in ("r", "k", "v", "w")}
+    du = torch.zeros_like(uf)
+    for t in reversed(range(r.shape[2])):
+        r_, k_, v_, w_, do = (a[:, :, t].float() for a in (r, k, v, w, dout))
+        st = states[t]
+        vdo = (v_ * do).sum(-1, keepdim=True)
+        grads["r"].append(uf * k_ * vdo + torch.einsum("bhij,bhj->bhi", st, do))
+        grads["k"].append(r_ * uf * vdo + torch.einsum("bhij,bhj->bhi", dS, v_))
+        grads["v"].append((r_ * uf * k_).sum(-1, keepdim=True) * do
+                          + torch.einsum("bhij,bhi->bhj", dS, k_))
+        grads["w"].append((dS * st).sum(-1))
+        du = du + (r_ * k_ * vdo).sum(0)
+        dS = w_[..., :, None] * dS + r_[..., :, None] * do[..., None, :]
+    dr, dk, dv, dw = (torch.stack(grads[n][::-1], dim=2).to(r.dtype) if grads[n]
+                      else torch.zeros_like(r) for n in ("r", "k", "v", "w"))
+    return dr, dk, dv, dw, du.to(u.dtype), dS

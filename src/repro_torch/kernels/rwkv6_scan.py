@@ -7,6 +7,11 @@ r/k/v/w by stride, so (B, H, T, dh) views of the model's (B, T, H, dh)
 projections cost no copy; out is allocated in (B, T, H, dh) memory and
 returned as a (B, H, T, dh) view.  The final state goes to ``s_out`` when it
 is given (it may be ``s0`` itself: the decode cache, updated in place).
+Under autograd the caller also passes ``checkpoints``
+((B, H, ceil(T / CHECKPOINT_EVERY), dh, dh) f32, ``checkpoint_shape``): the
+kernel writes the state entering every chunk of CHECKPOINT_EVERY steps
+there, which K5's backward (``rwkv6_scan_bwd``) recomputes each chunk from.
+The serving calls pass none.
 
 ``plan`` splits each head's value columns across blocks from the static
 shapes and the SM count alone, never from T or the state.
@@ -23,12 +28,14 @@ import torch
 from repro_torch.kernels import build, ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"rwkv6_scan_fwd": ([_P] * 8 + [_I] * 6 + [_L] * 19 + [_P], ctypes.c_int)}
+_SIGNATURES = {"rwkv6_scan_fwd": ([_P] * 8 + [_I] * 6 + [_L] * 19 + [_P, _P],
+                                   ctypes.c_int)}
 HEAD_DIMS = (16, 32, 64)
 COLUMN_SLICES = (8, 16, 32)   # value columns of one block: at most a warp's lanes, so
                                # a warp's r/k/w reads share one row group's address
 BLOCKS_PER_SM = 2              # the plan aims at this many blocks per SM
 ROWS_PER_GROUP = 16            # key rows of the state one thread holds per column (csrc R)
+CHECKPOINT_EVERY = ref.WKV_CHECKPOINT_EVERY   # steps between the states kept for the backward
 
 
 class Plan(NamedTuple):
@@ -48,6 +55,11 @@ def plan(B: int, H: int, dh: int, sms: int = 132) -> Plan:
     return Plan(jb, dh // ROWS_PER_GROUP)
 
 
+def checkpoint_shape(B: int, H: int, T: int, dh: int) -> tuple:
+    """The ``checkpoints`` tensor of a (B, H, T, dh) call."""
+    return (B, H, -(-T // CHECKPOINT_EVERY), dh, dh)
+
+
 def _bht(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
 
@@ -60,13 +72,18 @@ def _check_state(name: str, s: torch.Tensor, B: int, H: int, dh: int):
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-               u: torch.Tensor, s0: torch.Tensor, *, s_out=None):
+               u: torch.Tensor, s0: torch.Tensor, *, s_out=None, checkpoints=None):
     """r/k/v/w: (B, H, T, dh); u: (H, dh); s0: (B, H, dh, dh).
 
     Returns (out (B, H, T, dh), s_final (B, H, dh, dh) f32).
     """
+    if checkpoints is not None and (
+            checkpoints.shape != checkpoint_shape(*r.shape)
+            or checkpoints.dtype != torch.float32 or not checkpoints.is_contiguous()):
+        raise ValueError(f"rwkv6_scan: checkpoints must be {checkpoint_shape(*r.shape)} "
+                         "float32, contiguous")
     if r.device.type == "cpu":
-        out, s_final = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+        out, s_final = ref.rwkv6_scan_ref(r, k, v, w, u, s0, checkpoints)
         if s_out is not None:
             s_out.copy_(s_final)
             s_final = s_out
@@ -89,7 +106,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     if s_out is None:
         s_out = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
     _check_state("s_out", s_out, B, H, dh)
-    if any(t.device != r.device for t in (k, v, w, u, s0, s_out)):
+    if any(t.device != r.device for t in (k, v, w, u, s0, s_out)) or (
+            checkpoints is not None and checkpoints.device != r.device):
         raise ValueError("rwkv6_scan: all operands must be on one device")
     if any(t.stride(3) != 1 for t in (r, k, v, w)):
         raise ValueError("rwkv6_scan: the head dim of r, k, v, w must be contiguous")
@@ -104,7 +122,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
         s0.data_ptr(), out.data_ptr(), s_out.data_ptr(), build.DTYPE_CODES[r.dtype],
         B, H, T, dh, p.jb, *_bht(r), *_bht(k), *_bht(v), *_bht(w), *_bht(out),
         s0.stride(0), s0.stride(1), s_out.stride(0), s_out.stride(1),
-        build.current_stream())
+        None if checkpoints is None else checkpoints.data_ptr(), build.current_stream())
     build.check(lib, code, "rwkv6_scan")
     rwkv6_scan.launches += 1
     return out, s_out

@@ -10,6 +10,13 @@ The counterpart of the JAX package's ``models/moe.py``:
     grouped GEMMs (``ops.moe_gmm``, K4 on the GPU) over its (E, C, D) view
     with ``group_sizes`` = the live rows per expert, and the gated combine.
 
+Training: when grad mode is on and an operand requires grad, each grouped
+GEMM goes through ``MoeGmm``, whose forward is ``ops.moe_gmm`` and whose
+backward is ``ops.moe_gmm_bwd`` (K4's backward kernel on the GPU, its plain
+version on the CPU): the counterpart of the JAX package's autodiff of its
+three expert einsums.  Under ``torch.no_grad`` (every serving call) nothing
+changes.
+
 The dispatch never reads a device value on the host (no one-hot of a
 range-checked index, no bincount, no boolean-mask indexing, no ``.item()``),
 and the capacity comes from static shapes, so a CUDA graph can capture a
@@ -68,6 +75,31 @@ def route(router_w, x, k: int):
     return gates, idx, aux
 
 
+class MoeGmm(torch.autograd.Function):
+    """out[e] = x[e] @ w[e] over the live rows, differentiated by the
+    hand-written backward: it saves x, w and group_sizes (no (E, C, F)
+    residual) and computes only the gradients autograd asks for."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return ops.moe_gmm(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        dx, dw = ops.moe_gmm_bwd(x, w, group_sizes, dy, need_dx=ctx.needs_input_grad[0],
+                                 need_dw=ctx.needs_input_grad[1])
+        return dx, dw, None
+
+
+def _gmm(x, w, group_sizes):
+    """``ops.moe_gmm``, through ``MoeGmm`` where autograd needs its gradient."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return MoeGmm.apply(x, w, group_sizes)
+    return ops.moe_gmm(x, w, group_sizes)
+
+
 def moe_ffn(p, x, *, experts_per_token: int, capacity_factor: float = 1.25):
     """x: (B, S, D) -> (out (B, S, D), aux_loss)."""
     B, S, D = x.shape
@@ -95,9 +127,8 @@ def moe_ffn(p, x, *, experts_per_token: int, capacity_factor: float = 1.25):
     buf.index_add_(0, slot, xk)
     xe = buf[: E * C].view(E, C, D)
 
-    h = F.silu(ops.moe_gmm(xe, p["wi_gate"], group_sizes)) * ops.moe_gmm(
-        xe, p["wi_up"], group_sizes)
-    ye = ops.moe_gmm(h, p["wo"], group_sizes)                    # (E, C, D)
+    h = F.silu(_gmm(xe, p["wi_gate"], group_sizes)) * _gmm(xe, p["wi_up"], group_sizes)
+    ye = _gmm(h, p["wo"], group_sizes)                           # (E, C, D)
 
     # combine: gather back in the model dtype, weight by gate, sum over slots
     yflat = torch.cat([ye.reshape(E * C, D), ye.new_zeros((1, D))])

@@ -6,7 +6,11 @@ RWKV6: the time mix's projections run in float32 with float32 weights, as
 there; its WKV recurrence runs through ``ops.rwkv6_scan`` (K5 on the GPU)
 for any T, so the prefill and every decode step (T = 1) take the same kernel
 and the same state layout (B, H, hd, hd) [key dim, value dim].  The channel
-mix stays in the model dtype.
+mix stays in the model dtype.  Under autograd the recurrence goes through
+``Rwkv6Scan``: its forward keeps the state entering every 16 steps, and its
+backward is ``ops.rwkv6_scan_bwd`` (K5's backward kernel on the GPU, the
+reverse scan written out on the CPU), the counterpart of the JAX package's
+autodiff of its ``lax.scan``.
 
 Mamba2 (zamba2's backbone): the JAX package steps its recurrence with
 ``lax.scan`` over T and has no Pallas kernel for it.  Here a decode step
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.rwkv6_scan import checkpoint_shape
 from repro_torch.models import layers
 
 _LORA_MIX = 32
@@ -94,6 +99,34 @@ def rwkv6_wkv_step(state, r, k, v, w, u):
     return state, out
 
 
+class Rwkv6Scan(torch.autograd.Function):
+    """The WKV recurrence of (B, H, T, hd) r/k/v/w, differentiated by the
+    reverse scan: it saves the inputs and the state entering every 16 steps
+    (no (T, hd, hd) residual), and returns (dr, dk, dv, dw) in the (B, T, H,
+    hd) memory the projections' views expect.  float32 only, as the model
+    feeds it."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        if any(t.dtype != torch.float32 for t in (r, k, v, w)):
+            raise ValueError("Rwkv6Scan: the WKV scan trains in float32 (the model "
+                             f"feeds it float32); got {r.dtype}")
+        ctx.set_materialize_grads(False)
+        # the card's backward recomputes each chunk from these; the CPU's from s0
+        ckpt = (torch.empty(checkpoint_shape(*r.shape), dtype=torch.float32, device=r.device)
+                if r.device.type == "cuda" else None)
+        out, s_final = ops.rwkv6_scan(r, k, v, w, u, s0, checkpoints=ckpt)
+        ctx.save_for_backward(r, k, v, w, u, s0, ckpt)
+        return out, s_final
+
+    @staticmethod
+    def backward(ctx, dout, ds_final):
+        r, k, v, w, u, s0, ckpt = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(r)
+        return ops.rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final, checkpoints=ckpt)
+
+
 def _shifted(x, shift_prev):
     """sx = x shifted one step right (``shift_prev`` first) minus x."""
     B, T, D = x.shape
@@ -114,7 +147,13 @@ def rwkv6_time_mix(tm, x, head_dim: int, state=None, shift_prev=None, state_out=
     rh, kh, vh, wh = (t.view(B, T, H, head_dim).transpose(1, 2) for t in (r, k, v, w))
     s0 = (state.float() if state is not None
           else torch.zeros((B, H, head_dim, head_dim), dtype=torch.float32, device=x.device))
-    out, s_final = ops.rwkv6_scan(rh, kh, vh, wh, tm["u"].float(), s0, s_out=state_out)
+    u = tm["u"].float()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (rh, kh, vh, wh, u, s0)):
+        out, s_final = Rwkv6Scan.apply(rh, kh, vh, wh, u, s0)
+        if state_out is not None:   # the copy keeps the state's gradient
+            s_final = state_out.copy_(s_final)
+    else:
+        out, s_final = ops.rwkv6_scan(rh, kh, vh, wh, u, s0, s_out=state_out)
     y = out.transpose(1, 2).reshape(B, T, D)  # (B,T,D) f32
     y = layers.group_norm_heads(y, tm["lnx_w"], tm["lnx_b"], H)
     y = (y.float() * g) @ tm["wo"].float()

@@ -6,12 +6,12 @@ gradients come from ``torch.autograd.grad`` over the parameter leaves, whose
 ``requires_grad`` is on only inside the step, and ``adamw_update`` then
 updates the parameters and the optimizer state in place.
 
-On CUDA the forward of every family reaches a kernel.  Attention (K1) has a
-backward kernel (``FlashAttention`` in ``models/attention.py``); the
-grouped expert GEMM (K4, moe) and the WKV scan (K5, rwkv6) do not yet, so
-``make_train_step`` raises ``NotImplementedError`` for those families on
-CUDA, before any step.  On the CPU every kernel's plain version is
-differentiable and all ten families train.
+On CUDA the forward of every family reaches a kernel, and every kernel on
+the training path has a hand-written backward, so all ten archs train on
+the card: attention (K1) through ``FlashAttention`` (``models/attention.py``),
+the grouped expert GEMM (K4, moe) through ``MoeGmm`` (``models/moe.py``) and
+the WKV scan (K5, rwkv6) through ``Rwkv6Scan`` (``models/ssm.py``).  On the
+CPU the same Functions run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -25,11 +25,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.devices import resolve_device
 from repro_torch.models import transformer
 from repro_torch.training.optim import AdamWConfig, adamw_update, init_opt_state, tree_leaves
-
-# families whose forward reaches a kernel without a backward, by kernel
-_NO_BACKWARD = {"moe": "K4 (moe_gmm, the grouped expert GEMM)",
-                "ssm": "K5 (rwkv6_scan, the WKV recurrence)"}
-
 
 def _unflatten(tree, leaves):
     """``tree``'s structure with its leaves, in ``tree_leaves`` order, from ``leaves``."""
@@ -59,14 +54,6 @@ def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = False,
         loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return loss + aux_weight * out["aux_loss"], {
         "ce_loss": loss, "aux_loss": out["aux_loss"]}
-
-
-def _check_trainable(cfg: ModelConfig, device: torch.device) -> None:
-    kernel = _NO_BACKWARD.get("moe" if cfg.is_moe else cfg.family)
-    if device.type == "cuda" and kernel is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training on CUDA needs the backward of {kernel}, which "
-            "has no kernel yet; train this family on the CPU (device='cpu')")
 
 
 def loss_and_grads(params, cfg: ModelConfig, batch, *, remat: bool = False):
@@ -101,7 +88,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, remat: bool = Fal
     ``stats`` holds 0-d tensors: loss, ce_loss, aux_loss, grad_norm, lr.
     """
     device = resolve_device(device)
-    _check_trainable(cfg, device)
 
     def train_step(params, opt_state, batch):
         batch = batch_to(batch, device)

@@ -16,6 +16,7 @@ from repro_torch.kernels import flash_attention as k1
 from repro_torch.kernels import flash_attention_bwd as k1b
 from repro_torch.kernels import int8_matmul as k3
 from repro_torch.kernels import moe_gmm as k4
+from repro_torch.kernels import moe_gmm_bwd as k4b
 from repro_torch.kernels import rwkv6_scan as k5
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as T
@@ -900,12 +901,182 @@ def test_train_step_card_vs_cpu(gen, arch):
     assert opt["step"] == 1 and torch.isfinite(stats["loss"])
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b-smoke", "rwkv6-3b-smoke"])
-def test_train_step_raises_without_a_backward_kernel(gen, arch):
+def _train_batch(cfg, seed, B=2, S=24):
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)}
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b-smoke", "arctic-480b-smoke", "rwkv6-3b-smoke"])
+def test_train_step_card_vs_cpu_moe_and_rwkv6(gen, arch):
+    """One f32 train step of moe (K4 and its backward) and rwkv6 (K5 and its
+    backward) on the card against the CPU's plain versions: loss within
+    1e-4, gradients within 1e-3; every K4 / K5 call of the step launches its
+    forward and backward kernel."""
     from repro_torch.training import optim, trainer
 
-    with pytest.raises(NotImplementedError, match="K4" if "mixtral" in arch else "K5"):
-        trainer.make_train_step(get_arch(arch), optim.AdamWConfig())
+    cfg = get_arch(arch)
+    p_cpu = T.init_params(cfg, seed=0, device="cpu")
+    p_gpu = T.params_from_numpy(_numpy_tree(p_cpu), cfg)
+    batch = _train_batch(cfg, 1)
+    n = ops.launch_counts()
+    l_gpu, _, g_gpu = trainer.loss_and_grads(p_gpu, cfg, trainer.batch_to(batch, "cuda"))
+    launched = {k: c - n[k] for k, c in ops.launch_counts().items()}
+    fwd, bwd = ("moe_gmm", "moe_gmm_bwd") if cfg.is_moe else ("rwkv6_scan", "rwkv6_scan_bwd")
+    per_layer = 3 if cfg.is_moe else 1
+    assert launched[fwd] == launched[bwd] == per_layer * cfg.num_layers, launched
+    l_cpu, _, g_cpu = trainer.loss_and_grads(p_cpu, cfg, trainer.batch_to(batch, "cpu"))
+    assert abs(float(l_gpu) - float(l_cpu)) < 1e-4
+    for a, b in zip(optim.tree_leaves(g_gpu), optim.tree_leaves(g_cpu)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=0)
+    step = trainer.make_train_step(cfg, optim.AdamWConfig(warmup_steps=1, total_steps=4))
+    _, opt, stats = step(p_gpu, optim.init_opt_state(p_gpu), batch)
+    assert opt["step"] == 1 and torch.isfinite(stats["loss"])
+
+
+@pytest.mark.parametrize("arch,kwargs", [
+    ("minitron-4b-smoke", dict(remat=True)), ("mixtral-8x7b-smoke", dict(remat=True)),
+    ("minitron-4b-smoke", dict(microbatches=2)), ("rwkv6-3b-smoke", dict(microbatches=2))])
+def test_train_step_remat_and_microbatches_card_vs_cpu(gen, arch, kwargs):
+    """make_train_step(remat=True) (FlashAttention's and MoeGmm's forward
+    re-run under torch.utils.checkpoint) and microbatches=2 on the card
+    against the same step on the CPU: loss 1e-4, the first moment (the
+    clipped gradient scaled by 1 - b1) 1e-3."""
+    from repro_torch.training import optim, trainer
+
+    cfg = get_arch(arch)
+    p_cpu = T.init_params(cfg, seed=0, device="cpu")
+    p_gpu = T.params_from_numpy(_numpy_tree(p_cpu), cfg)
+    batch = _train_batch(cfg, 2, B=4, S=16)
+    opt_cfg = optim.AdamWConfig(warmup_steps=1, total_steps=4)
+    out = {}
+    for device, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        step = trainer.make_train_step(cfg, opt_cfg, device=device, **kwargs)
+        out[device] = step(p, optim.init_opt_state(p), batch)
+    (_, opt_g, st_g), (_, opt_c, st_c) = out["cuda"], out["cpu"]
+    assert abs(float(st_g["loss"]) - float(st_c["loss"])) < 1e-4
+    for a, b in zip(optim.tree_leaves(opt_g["m"]), optim.tree_leaves(opt_c["m"])):
+        b1c = 1 - opt_cfg.b1
+        torch.testing.assert_close(a.cpu() / b1c, b / b1c, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("E,C,D,F,sizes", [
+    (4, 64, 96, 128, [0, 64, 22, 5]),             # dx on wgmma: a dead and a full expert
+    (3, 200, 136, 264, [0, 200, 77]),             # C, D, F off every tile
+    (8, 320, 256, 512, [320, 300, 0, 1, 129, 128, 64, 250]),   # mixtral's training C
+    (2, 32, 64, 48, [32, 7]),                     # C <= 32: dx on wgmma, one short tile
+    (3, 12, 1032, 136, [12, 0, 5]),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_bwd_kernel(gen, E, C, D, F, sizes, dtype):
+    """dx and dw against the plain version (2e-4 f32; 2e-2 bf16, atol scaled
+    to the largest value); rows past group_sizes[e] exact zeros in dx; an
+    expert with no live row gets a zero dw; two calls give the same bits;
+    each gradient alone when only it is asked for."""
+    x = torch.randn(E, C, D, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(dtype)
+    dy = torch.randn(E, C, F, generator=gen, device="cuda").to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    n = ops.launch_counts()["moe_gmm_bwd"]
+    dx, dw = ops.moe_gmm_bwd(x, w, gs, dy)
+    assert ops.launch_counts()["moe_gmm_bwd"] == n + 1
+    want = ref.moe_gmm_bwd_ref(x, w, gs, dy)
+    for got, exp in zip((dx, dw), want):
+        tol = _tol(dtype)
+        tol["atol"] *= min(1.0, float(exp.float().abs().max()))
+        torch.testing.assert_close(got, exp, **tol)
+    for e, size in enumerate(sizes):
+        assert torch.count_nonzero(dx[e, size:]) == 0
+        if size == 0:
+            assert torch.count_nonzero(dw[e]) == 0
+    again = ops.moe_gmm_bwd(x, w, gs, dy)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    only_dx = ops.moe_gmm_bwd(x, w, gs, dy, need_dw=False)
+    only_dw = ops.moe_gmm_bwd(x, w, gs, dy, need_dx=False)
+    assert only_dx[1] is None and torch.equal(only_dx[0], dx)
+    assert only_dw[0] is None and torch.equal(only_dw[1], dw)
+
+
+def test_moe_gmm_bwd_paths(gen):
+    """bf16 takes wgmma for dx in the model's layouts; a dy with misaligned
+    rows, or one that is no tensor map (rows overlapping), is refused, never
+    sent down another path; in a CUDA graph, replays with new group sizes
+    give the plain version's."""
+    E, C, D, F = 4, 64, 128, 256
+    x = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(torch.bfloat16)
+    dy = torch.randn(E, C, F, generator=gen, device="cuda").to(torch.bfloat16)
+    gs = torch.tensor([64, 3, 0, 40], dtype=torch.int32, device="cuda")
+    assert k4b.plan_call(x, w, dy) == k4b.Plan("wgmma", "mma")
+    odd = torch.randn(E * C, F + 4, generator=gen, device="cuda").to(torch.bfloat16)
+    odd[:, :F] = dy.reshape(E * C, F)
+    dy_odd = odd[:, :F].view(E, C, F)
+    # a row stride of F + 4 elements is not 16-byte aligned: the wrapper raises
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.moe_gmm_bwd(x, w, gs, dy_odd)
+    with pytest.raises(ValueError, match="tensor maps"):
+        ops.moe_gmm_bwd(x, w, gs, dy[:, :1].expand(E, C, F))
+    want = ref.moe_gmm_bwd_ref(x, w, gs, dy)
+    got = ops.moe_gmm_bwd(x, w, gs, dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **_tol(torch.bfloat16))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.moe_gmm_bwd(x, w, gs, dy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dx, dw = ops.moe_gmm_bwd(x, w, gs, dy)
+    for sizes in ([0, 0, 0, 0], [64] * 4, [1, 63, 33, 32]):
+        gs.copy_(torch.tensor(sizes, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip((dx, dw), ref.moe_gmm_bwd_ref(x, w, gs, dy)):
+            torch.testing.assert_close(a, b, **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("B,H,T,dh", [(1, 2, 1, 16), (2, 3, 37, 32), (2, 4, 70, 64),
+                                      (1, 2, 64, 64)])
+@pytest.mark.parametrize("ds_final", [True, False])
+def test_rwkv6_scan_bwd_kernel(gen, B, H, T, dh, ds_final):
+    """The reverse scan against the plain version at 2e-4 (atol scaled to
+    the largest value), r/k/v/w as (B, H, T, dh) views of (B, T, H, dh)
+    memory as the model passes them, T ragged against the checkpoints; two
+    calls give the same bits; the forward's output is unchanged by writing
+    the checkpoints."""
+    def rnd(*shape, scale=0.5):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    r, k, v = (rnd(B, T, H, dh).transpose(1, 2) for _ in range(3))
+    w = torch.sigmoid(rnd(B, T, H, dh, scale=1.0)).transpose(1, 2)
+    u, s0 = rnd(H, dh, scale=0.3), rnd(B, H, dh, dh, scale=0.1)
+    dout = rnd(B, T, H, dh, scale=1.0).transpose(1, 2)
+    dsf = rnd(B, H, dh, dh, scale=0.5) if ds_final else None
+    ck = torch.empty(k5.checkpoint_shape(B, H, T, dh), device="cuda")
+    out, sf = ops.rwkv6_scan(r, k, v, w, u, s0, checkpoints=ck)
+    out0, sf0 = ops.rwkv6_scan(r, k, v, w, u, s0)
+    assert torch.equal(out, out0) and torch.equal(sf, sf0)
+    n = ops.launch_counts()["rwkv6_scan_bwd"]
+    got = ops.rwkv6_scan_bwd(r, k, v, w, u, s0, dout, dsf, checkpoints=ck)
+    assert ops.launch_counts()["rwkv6_scan_bwd"] == n + 1
+    want = ref.rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dout, dsf)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4 * min(1.0, float(b.abs().max())),
+                                   rtol=2e-4)
+    again = ops.rwkv6_scan_bwd(r, k, v, w, u, s0, dout, dsf, checkpoints=ck)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_rwkv6_scan_bwd_refuses_what_it_does_not_take(gen):
+    r = torch.randn(1, 2, 8, 16, generator=gen, device="cuda")
+    u, s0 = r[0, :, 0], torch.zeros(1, 2, 16, 16, device="cuda")
+    with pytest.raises(ValueError, match="checkpoints"):
+        ops.rwkv6_scan_bwd(r, r, r, r, u, s0, r)
+    ck = torch.empty(k5.checkpoint_shape(1, 2, 8, 16), device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        rb = r.to(torch.bfloat16)
+        ops.rwkv6_scan_bwd(rb, rb, rb, rb, u, s0, rb, checkpoints=ck)
 
 
 def _numpy_tree(tree):

@@ -370,6 +370,10 @@ def test_wrappers_reject_other_devices():
         ops.moe_gmm(q, q)
     with pytest.raises(ValueError, match="device"):
         ops.rwkv6_scan(q, q, q, q, q[0, :, 0], q)
+    with pytest.raises(ValueError, match="device"):
+        ops.moe_gmm_bwd(q, q, None, q)
+    with pytest.raises(ValueError, match="device"):
+        ops.rwkv6_scan_bwd(q, q, q, q, q[0, :, 0], q, q)
 
 
 def test_launch_counters_untouched_on_cpu():
@@ -383,6 +387,8 @@ def test_launch_counters_untouched_on_cpu():
     ops.rwkv6_scan(r, r, r, r.sigmoid(), r[0, :, 0], torch.zeros((1, 2, 8, 8)))
     o, lse = ops.flash_attention(r, r, r, return_lse=True)
     ops.flash_attention_bwd(r, r, r, o, lse, o)
+    ops.moe_gmm_bwd(x3, x3.transpose(1, 2).contiguous(), None, x3[:, :, :8])
+    ops.rwkv6_scan_bwd(r, r, r, r.sigmoid(), r[0, :, 0], torch.zeros((1, 2, 8, 8)), r)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
                                    "decode_attention": 0, "int8_matmul": 0, "moe_gmm": 0,
-                                   "rwkv6_scan": 0}
+                                   "moe_gmm_bwd": 0, "rwkv6_scan": 0, "rwkv6_scan_bwd": 0}

@@ -8,7 +8,10 @@ once; every moe config's prefill takes K4's wgmma path and its decode the
 mma path, whose D splits come from the static shapes alone and cover D
 once; K5's column slices come from (B, H, dh, SMs) alone; K1's backward
 takes its tensor-core path for the model's bf16 layouts, and splits its dq
-pass over the kv range from the static shapes alone.
+pass over the kv range from the static shapes alone; K4's backward takes
+tensor-core paths for dx and dw in bf16 (dx on wgmma at every moe config's
+training C above 32), and K5's backward slices its columns and chunks its
+time from the shapes alone.
 """
 
 import inspect
@@ -22,7 +25,9 @@ from repro_torch.kernels import flash_attention as k1
 from repro_torch.kernels import flash_attention_bwd as k1b
 from repro_torch.kernels import int8_matmul as k3
 from repro_torch.kernels import moe_gmm as k4
+from repro_torch.kernels import moe_gmm_bwd as k4b
 from repro_torch.kernels import rwkv6_scan as k5
+from repro_torch.kernels import rwkv6_scan_bwd as k5b
 from repro_torch.models.moe import capacity
 
 SMS = 132   # one H100 SXM
@@ -326,3 +331,59 @@ def test_rwkv6_scan_plan_at_the_serve_shape():
     """rwkv6-3b at B = 4: 40 heads of 64 in 32-column slices, 320 blocks of
     4 row groups."""
     assert k5.plan(4, 40, 64, 132) == k5.Plan(32, 4)
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS + [n + "-smoke" for n in MOE_ARCHS])
+@pytest.mark.parametrize("tokens", [2 * 512, 8 * 64, 2 * 32])
+def test_moe_gmm_bwd_plan_every_config(name, tokens):
+    """K4's backward at each moe config's training capacity (B 2 x S 512, a
+    smoke batch, a short one): bf16 never reaches the FMA kernels (dx on
+    wgmma at every C, dw on mma), and the model's operands are tensor maps
+    (dy from autograd is contiguous); float32 takes fma for both."""
+    assert list(inspect.signature(k4b.plan).parameters) == ["dtype"]
+    cfg = get_arch(name)
+    E = cfg.num_experts
+    C = capacity(tokens, E, cfg.experts_per_token, cfg.capacity_factor)
+    for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):   # gate/up, down
+        x, w = _moe_operands(E, C, D, F, torch.bfloat16)
+        dy = torch.empty((E, C, F), dtype=torch.bfloat16, device="meta")
+        assert E <= k4.WGMMA_MAX_E and k4._map_ok(w) and k4._map_ok(dy), (name, C, D, F)
+        assert k4b.plan_call(x, w, dy) == k4b.Plan("wgmma", "mma"), (name, C, D, F)
+        x32, w32 = _moe_operands(E, C, D, F, torch.float32)
+        assert k4b.plan_call(x32, w32, dy.float()) == k4b.Plan("fma", "fma")
+
+
+def test_moe_gmm_bwd_plan_at_the_training_shape():
+    """mixtral-8x7b at B 2 x S 512: C 320, dx on wgmma for gate/up and down,
+    as at every C; the plan reads no layout: a bf16 dy the tensor map cannot
+    take is refused by the wrapper on the card, never sent down another
+    path (tests/test_torch_cuda.py::test_moe_gmm_bwd_paths)."""
+    assert capacity(1024, 8, 2, 1.25) == 320
+    assert k4b.plan(torch.bfloat16) == k4b.Plan("wgmma", "mma")
+    assert k4b.plan(torch.float32) == k4b.Plan("fma", "fma")
+    # a dy the tensor map cannot take (experts 4 elements past a multiple of 8)
+    dy = torch.zeros(2 * 64 * 128 + 4, dtype=torch.bfloat16).as_strided(
+        (2, 64, 128), (64 * 128 + 4, 128, 1))
+    x, w = torch.zeros(2, 64, 64, dtype=torch.bfloat16), torch.zeros(2, 64, 128,
+                                                                      dtype=torch.bfloat16)
+    assert not k4._map_ok(dy) and k4._map_ok(dy.contiguous())
+    assert k4b.plan_call(x, w, dy) == k4b.plan_call(x, w, dy.contiguous())
+
+
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 512, 1000])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+def test_rwkv6_scan_bwd_plan(T, dh):
+    """K5 backward's blocks and chunks from (B, H, T, dh) alone: 16-column
+    slices covering dh, one chunk per forward checkpoint, covering T once."""
+    assert list(inspect.signature(k5b.plan).parameters) == ["B", "H", "T", "dh"]
+    p = k5b.plan(2, 40, T, dh)
+    assert p.jb * p.slices == dh and p.jb == 16
+    assert (p.chunks - 1) * k5.CHECKPOINT_EVERY < T <= p.chunks * k5.CHECKPOINT_EVERY
+    assert k5.checkpoint_shape(2, 40, T, dh) == (2, 40, p.chunks, dh, dh)
+
+
+def test_rwkv6_scan_bwd_plan_at_the_training_shape():
+    """rwkv6-3b at B 2 x T 512: 40 heads of 64 in 4 slices, 320 blocks, 32
+    chunks of 16 steps (42 MB of checkpoints a layer)."""
+    assert k5b.plan(2, 40, 512, 64) == k5b.Plan(16, 4, 32)
+    assert 2 * 40 * 32 * 64 * 64 * 4 == 41_943_040
