@@ -20,9 +20,12 @@ Phases, each printed as one JSON line:
                 (513..544) and K4 at the serve's own group sizes (4096 routed
                 rows).  Each timed case is timed eagerly (ms, library_ms:
                 CUDA events around the call) and as a CUDA-graph replay
-                (graph_ms, library_graph_ms), with both factors; K3 at (4,
-                3072, 9216) adds torch.profiler's device time per kernel,
-                and the phase the timing floor
+                (graph_ms, library_graph_ms), with both factors, L2 flushed
+                before each call by a 256 MB write, and the kernel also
+                after a 256 MB read (ms_clean, graph_ms_clean: no dirty
+                lines drain during the call); K3 at (4, 3072, 9216) adds
+                torch.profiler's device time per kernel, and the phase the
+                timing floor
   model_parity  minitron-4b, mixtral-8x7b, arctic-480b, rwkv6-3b, zamba2-2.7b
                 and whisper-small (frames from --seed) -smoke in f32:
                 prefill + 3 decode steps on the card (kernels) against
@@ -194,8 +197,20 @@ def smi() -> str:
 # -- timing ----------------------------------------------------------------------
 
 
-def time_ms(fn, iters: int = 10, graph: bool = False) -> float:
-    """Median time of ``fn`` over ``iters`` runs, L2 flushed before each.
+def l2_flush(clean: bool = False):
+    """What runs before each timed call so that it finds L2 cold: a write of
+    a 256 MB buffer (the readings of every earlier PR), or with ``clean`` a
+    sum over it, which fills L2 with clean lines: the write's dirty lines
+    drain to memory while the timed call runs, the sum's need no write-back."""
+    import torch
+
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    return (lambda: flush.sum(dtype=torch.int32)) if clean else flush.zero_
+
+
+def time_ms(fn, iters: int = 10, graph: bool = False, clean: bool = False) -> float:
+    """Median time of ``fn`` over ``iters`` runs, L2 flushed before each
+    (``l2_flush(clean)``).
 
     Eagerly (the default): CUDA events around the call itself, so a kernel
     shorter than its host cost (a Python wrapper's checks, a library's
@@ -204,7 +219,7 @@ def time_ms(fn, iters: int = 10, graph: bool = False) -> float:
     cost of issuing ``fn``, as SI2 replays its decode step."""
     import torch
 
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = l2_flush(clean)
     fn()
     torch.cuda.synchronize()
     run = fn
@@ -220,7 +235,7 @@ def time_ms(fn, iters: int = 10, graph: bool = False) -> float:
         run = g.replay
     times = []
     for _ in range(iters):
-        flush.zero_()
+        flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -232,14 +247,22 @@ def time_ms(fn, iters: int = 10, graph: bool = False) -> float:
     return times[len(times) // 2]
 
 
+def kernel_times(fn) -> dict:
+    """ms and graph_ms after the writing flush, ms_clean and graph_ms_clean
+    after the reading one."""
+    return {"ms": time_ms(fn), "graph_ms": time_ms(fn, graph=True),
+            "ms_clean": time_ms(fn, clean=True),
+            "graph_ms_clean": time_ms(fn, graph=True, clean=True)}
+
+
 def timed(case: dict, fn, plain, library, nbytes: float, flops: float,
           graph_library: bool = True) -> None:
     """Times of one case: the kernel's ``ms`` (eager) and ``graph_ms`` (CUDA-graph
-    replay), the plain version's (eager), the library call's both ways (only
+    replay), each also after a reading flush (``ms_clean``, ``graph_ms_clean``),
+    the plain version's (eager), the library call's both ways (only
     eagerly without ``graph_library``: an autograd call), the bound, and the
     factors ms / library_ms and graph_ms / library_graph_ms."""
-    case["ms"] = time_ms(fn)
-    case["graph_ms"] = time_ms(fn, graph=True)
+    case.update(kernel_times(fn))
     case["plain_ms"] = time_ms(plain, 3)
     case["library_ms"] = case["library_graph_ms"] = None
     if library is not None:
@@ -260,27 +283,27 @@ def timing_floor() -> dict:
             "graph_ms": time_ms(lambda: small.add_(1), graph=True)}
 
 
-def device_us(fns: dict, iters: int = 10) -> dict:
+def device_us(fns: dict, iters: int = 10, clean: bool = False) -> dict:
     """torch.profiler's device time of each kernel that ``fns`` launch, per
     call of its fn: the kernel's total over ``iters`` calls divided by
     ``iters`` (a kernel a call launches twice counts twice), L2 flushed
-    before each call (the flush's fill kernel left out)."""
+    before each call (``l2_flush(clean)``; the flush's own kernel left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = l2_flush(clean)
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             for fn in fns.values():
-                flush.zero_()
+                flush()
                 fn()
         torch.cuda.synchronize()
     return {e.key[:80]: e.self_device_time_total / iters for e in prof.key_averages()
             if e.self_device_time_total > 0 and "elementwise" not in e.key
-            and "fill" not in e.key.lower()}
+            and "fill" not in e.key.lower() and not (clean and "reduce_kernel" in e.key)}
 
 
 # the port's kernels by their CUDA function names (kernels/csrc/*.cu)
@@ -543,9 +566,10 @@ def phase_kernels(seed: int) -> dict:
                       lambda: torch.matmul(x, w_deq), nbytes, flops)
                 if (M, D, N) == (4, 3072, 9216):
                     # the decode path's kernels (stream, split sum) and cuBLAS's
-                    case["device_us"] = device_us(
-                        {"k3": lambda: ops.int8_matmul(x, wq, scales),
-                         "library": lambda: torch.matmul(x, w_deq)})
+                    fns = {"k3": lambda: ops.int8_matmul(x, wq, scales),
+                           "library": lambda: torch.matmul(x, w_deq)}
+                    case["device_us"] = device_us(fns)
+                    case["device_us_clean"] = device_us(fns, clean=True)
             emit_case("int8_matmul", case)
             cases.append(case)
     results["int8_matmul"] = cases
@@ -683,8 +707,10 @@ def _rwkv6_scan_cases(seed: int, randn) -> list:
 def emit_case(kernel: str, case: dict) -> None:
     """One kernel case on stderr as it completes: path, error, times, factor."""
     keys = ("arch", "shape", "window", "group_sizes", "dtype", "path", "splits", "plan",
-            "max_abs_err", "ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms", "factor",
-            "graph_factor", "device_us", "kernel_device_ms", "library_device_ms", "dq_splits",
+            "max_abs_err", "ms", "graph_ms", "ms_clean", "graph_ms_clean", "library_ms",
+            "library_graph_ms", "bound_ms", "factor", "graph_factor", "device_us",
+            "device_us_clean", "kernel_device_ms", "kernel_device_ms_clean",
+            "library_device_ms", "dq_splits",
             "library_fwd_bwd_ms", "library_fwd_bwd_device_ms", "device_factor", "ds_final",
             "of_bound", "dx", "dw", "forward_ms", "forward_with_checkpoints_ms")
     print(f"[{kernel}] " + json.dumps({k: case[k] for k in keys if k in case}),
@@ -2407,6 +2433,8 @@ def _train_attention_cases(seed: int) -> tuple:
                     us = device_us({name: fn})
                     bwd[f"{name}_device_ms"] = sum(us.values()) / 1e3
                     bwd[f"{name}_device_us"] = us
+                    bwd[f"{name}_device_ms_clean"] = sum(
+                        device_us({name: fn}, clean=True).values()) / 1e3
                 bwd["device_factor"] = bwd["kernel_device_ms"] / bwd["library_device_ms"]
             emit_case("flash_attention", fwd)
             emit_case("flash_attention_bwd", bwd)
@@ -2420,11 +2448,12 @@ def _moe_gmm_bwd_cases(seed: int) -> list:
     and down (B 2 x S 512, top-2: C 320, 2048 routed rows) with the group
     sizes a uniform router gives and with empty experts, bf16 (timed: both
     gradients, then dx and dw alone, each beside torch.bmm over every expert)
-    and f32; and a C <= 32 shape (dx on wgmma, one short row tile).  Two
-    calls must give the same bits.  Bound, each gradient alone by what it
-    needs: dx the weights of experts with live rows and the live rows of dy
-    read once, dx written once; dw the live rows of x and dy read once, dw
-    written once; both together the union."""
+    and f32; and a C <= 32 shape (one short tile of C for both gradients).
+    bf16 runs dx and dw on wgmma.  Two calls must give the same bits.
+    Bound, each gradient alone by what it needs: dx the weights of experts
+    with live rows and the live rows of dy read once, dx written once; dw
+    the live rows of x and dy read once, dw written once; both together the
+    union."""
     import numpy as np
     import torch
 
@@ -2489,8 +2518,7 @@ def _moe_gmm_bwd_cases(seed: int) -> list:
                         ("dw", dict(need_dx=False), lambda: torch.bmm(xz.transpose(1, 2), dy),
                          x_live + dy_live + 4 * E + dw_out)):
                     fn = lambda kw=kw: ops.moe_gmm_bwd(x, w, gs, dy, **kw)  # noqa: E731
-                    alone = {"ms": time_ms(fn), "graph_ms": time_ms(fn, graph=True),
-                             "library_ms": time_ms(lib),
+                    alone = {**kernel_times(fn), "library_ms": time_ms(lib),
                              "library_graph_ms": time_ms(lib, graph=True)}
                     alone["bound_ms"], alone["bound_by"] = bound(nbytes, flops, case["dtype"])
                     alone["of_bound"] = alone["ms"] / alone["bound_ms"]
@@ -2508,14 +2536,15 @@ def _rwkv6_scan_bwd_cases(seed: int) -> list:
     gradient (as in training: timed) and with one, and a T that is not a
     multiple of the 16-step checkpoints (T 200) with one; r/k/v/w and dout as
     (B, H, T, dh) views of (B, T, H, dh) memory, as the model passes them.
-    Two calls must give the same bits.  No single PyTorch call computes the
-    reverse scan: no library time.  Bound: r, k, v, w, dout, u and s0 read
-    once, dr, dk, dv, dw, du and ds0 written once (the checkpoints are the
-    design's, not the function's); 15 dh^2 operations a step (the states
-    recomputed once included)."""
+    Two calls must give the same bits, and the plan must put the training
+    shape in one wave.  No single PyTorch call computes the reverse scan: no
+    library time.  Bound: r, k, v, w, dout, u and s0 read once, dr, dk, dv,
+    dw, du and ds0 written once (the checkpoints are the design's, not the
+    function's); 15 dh^2 operations a step (the states recomputed once
+    included)."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import rwkv6_scan as k5
     from repro_torch.kernels import rwkv6_scan_bwd as k5b
 
@@ -2544,9 +2573,11 @@ def _rwkv6_scan_bwd_cases(seed: int) -> list:
         again = ops.rwkv6_scan_bwd(r, k, v, w, u, s0, dout, dsf, checkpoints=ck)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{tag}: two calls differ")
+        p = k5b.plan(B, H, T, dh, build.sm_count(0))
         case = {"shape": [B, H, T, dh], "dtype": "float32", "ds_final": with_dsf,
-                "plan": k5b.plan(B, H, T, dh)._asdict(), "path": "fma", "max_abs_err": err,
-                "bit_identical": True}
+                "plan": p._asdict(), "path": "fma", "max_abs_err": err, "bit_identical": True}
+        if (B, H, T, dh) == (2, 40, 512, 64) and p.waves != 1:
+            raise AssertionError(f"{tag}: plan {p} is not one wave")
         if is_timed:
             n = B * H * T * dh
             nbytes = 4 * (9 * n + 2 * H * dh + 2 * B * H * dh * dh)

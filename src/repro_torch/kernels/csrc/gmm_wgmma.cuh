@@ -1,5 +1,6 @@
 // K4's wgmma path, shared by its forward (csrc/moe_gmm.cu: out = x w) and
-// its backward's dx (csrc/moe_gmm_bwd.cu: dx = dy w^T): a grouped product
+// its backward's dx (csrc/moe_gmm_bwd.cu: dx = dy w^T; its dw kernel uses the
+// product, the tile constants and the tensor-map encoder): a grouped product
 // out[e] (C x N) = a[e] (C x K) b[e] (K x N) over the live rows of each
 // expert, bf16 in, f32 accumulate, bf16 out (E, C, N) contiguous.
 //
@@ -24,7 +25,8 @@
 // group_sizes[e] (and for the rows of wholly dead tiles, which the consumers
 // clear first) is exactly the TPU kernel's masking of x rows, and TMA loads
 // whole tiles (rows past C, columns past N and depth past K come in as
-// zeros).
+// zeros).  Measured and not kept (PERF.md): a consumer warpgroup whose 64
+// rows all lie at or past group_sizes[e] skipping its products (slower dx).
 #pragma once
 
 #include "common.cuh"
@@ -50,10 +52,10 @@ __device__ __forceinline__ int live_rows(const int* gs, int e, int C) {
   return gs == nullptr ? C : min(max(gs[e], 0), C);
 }
 
-// one m64n256k16 product: acc = A (64 x 16, K-major smem) * B (16 x 256,
-// smem; TB = 1: MN-major, read through the transpose flag; TB = 0: K-major)
-// + (accumulate ? acc : 0)
-template <int TB>
+// one m64n256k16 product: acc = A (64 x 16, smem) * B (16 x 256, smem) +
+// (accumulate ? acc : 0); TA, TB = 1: that operand is MN-major, read through
+// the instruction's transpose flag; 0: K-major
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da, uint64_t db,
                                                  int accumulate) {
   asm volatile(
@@ -67,7 +69,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da, uint64_t
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -85,7 +87,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da, uint64_t
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 struct Tile {
@@ -208,9 +210,9 @@ __device__ __forceinline__ void gmm_wgmma_body(const CUtensorMap* tmap_a,
 #pragma unroll
       for (int j = 0; j < W_BK / 16; ++j)  // A: 16 k = 32 bytes; B: 32 bytes K-major,
                                            // 16 k rows = 2048 bytes MN-major
-        wgmma_m64n256k16<KMAJOR_B ? 0 : 1>(acc, da + 2 * j,
-                                           db + (KMAJOR_B ? 2 : (2048 >> 4)) * j,
-                                           kt > 0 || j > 0);
+        wgmma_m64n256k16<0, KMAJOR_B ? 0 : 1>(acc, da + 2 * j,
+                                              db + (KMAJOR_B ? 2 : (2048 >> 4)) * j,
+                                              kt > 0 || j > 0);
       wgmma_commit();
       wgmma_wait<1>();  // the product of step it-1 is done: release its stage
       if (kt > 0 && (tid & 127) == 0) mbar_arrive(smem_u32(&empty[(it - 1) % W_STAGES]));

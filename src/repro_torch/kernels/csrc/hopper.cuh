@@ -1,7 +1,9 @@
 // Building blocks shared by the kernels for Hopper (sm_90a): cp.async
-// copies (K2, K4's wmma path, K1's mma paths through mma.cuh), and for the
-// tensor-core kernels (K3's and K4's wgmma paths, K4's and K1's mma paths)
-// shared-memory addresses, mbarriers, TMA and bulk copies, ldmatrix and
+// copies (K2, K4's wmma path, K1's mma paths through mma.cuh, K5's
+// backward), and for the tensor-core kernels (K3's and K4's wgmma paths,
+// K4's and K1's mma paths) shared-memory addresses, mbarriers, TMA loads and
+// stores, bulk copies, proxy fences, named barriers, cluster barriers and
+// distributed shared memory (K5's backward), ldmatrix and
 // mma.sync, wgmma descriptors and fences, and
 // cuTensorMapEncodeTiled fetched from the driver through the runtime, so a
 // kernel library needs no -lcuda.
@@ -22,6 +24,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// 4-byte asynchronous copy global -> shared (no alignment beyond the element's)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -73,6 +80,61 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// TMA store of a 3-D box shared -> global (out-of-range parts of the box are
+// not written), in a bulk async-group of the issuing thread: commit_group
+// closes the group, wait_group_read<N> returns once at most N groups still
+// read their shared memory (the buffer may then be rewritten), and
+// wait_group<0> once every store is done
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit_group() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_group_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_group() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+// makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (TMA, wgmma), and orders them after its earlier async reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// thread block clusters: the address in block `rank`'s shared memory of
+// this block's shared address `addr`, a float load from such an address, and
+// a barrier over every thread of the cluster in two halves (each thread
+// arrives, then waits: shared-memory writes before any thread's arrive are
+// seen after every wait)
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)

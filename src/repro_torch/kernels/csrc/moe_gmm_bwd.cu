@@ -27,140 +27,203 @@
 //             rows x 64 deep a stage feeds wgmma.m64n256k16 with no transpose
 //             flag and no copy.  At C below one 128-row tile TMA zero-fills
 //             the rows past C and the epilogue writes only rows below C.
-//   dw mma    (bf16): one block of 8 warps per 128 x 128 output tile and
-//             expert, a 3-stage cp.async ring of 32-deep k-steps,
-//             mma.sync.m16n8k16 (warp tile 64 x 32).  dw contracts over the
-//             ragged C axis: both operands (x and dy) lie C-major, read
-//             through ldmatrix.trans, the k-loop stops at the expert's last
-//             live row and the copy zero-fills rows at or past
-//             group_sizes[e] in the last k-tile, so an expert with no live
-//             row writes zeros.  Each output tile belongs to one block and k
-//             runs in order: no atomics, two calls give the same bits.
+//   dw wgmma  (bf16): gmmbwd_dw_wgmma below.  dw is bound by its write (at
+//             mixtral's gate/up 939.5 MB against a contraction of only the
+//             ~256 live rows), so the design keeps that write streaming:
+//             a persistent grid (one block an SM) walks dw's 128 x 256 tiles
+//             expert by expert, the shorter of the two tile axes fastest
+//             (the blocks side by side share x's and dy's live rows in L2);
+//             a producer warp keeps a 3-stage ring of 48 KB TMA stages in
+//             flight across tile boundaries, so the next tile's operands land
+//             while this tile's epilogue runs; two consumer warpgroups run
+//             wgmma.m64n256k16 on 64 rows each.  Both operands are MN-major
+//             and read in place: A = x~^T from x (E, C, D) boxes of 64 d x
+//             64 c (the transpose flag for A), B = dy from (E, C, F) boxes
+//             of 64 f x 64 c (the flag for B), all 128-byte swizzled.  The
+//             contraction is ragged: the k-loop stops at the expert's last
+//             live row, and since TMA zero-fills only past C, each consumer
+//             zeroes the c-lines at or past group_sizes[e] of its own x box
+//             in the last k-tile (whole 128-byte rows, which the swizzle
+//             leaves in place), then fences the async proxy before wgmma
+//             reads it.  An expert with no live row reads nothing and writes
+//             zeros.  The epilogue converts the accumulators to bf16 into a
+//             swizzled 64 KB buffer and one thread of each warpgroup issues
+//             TMA stores of it; the store drains while the next tile's
+//             products run, and the buffer is rewritten only after the
+//             store has read it.  Each output tile belongs to one block and
+//             k runs in order: no atomics, two calls give the same bits.
+//             Measured and not kept (PERF.md): clusters of two blocks
+//             sharing each dy stage by TMA multicast (slower), and one tile
+//             order for every shape (row tiles fastest: slower at down).
 //   fma       (f32): true float32 FMAs on 64 x 64 tiles, for the 2e-4 parity
 //             of the f32 smoke models.
-// Left for later work: a wgmma form of dw (its operands are both MN-major:
-// the transposed wgmma descriptors of the forward's b), and fusing silu's
-// backward into the gate/up dx.
+// Left for later work: fusing silu's backward into the gate/up dx.
 #include "common.cuh"
 #include "gmm_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int T_BM = 128;          // output rows of one mma block
-constexpr int T_BN = 128;          // output columns
-constexpr int T_BK = 32;           // depth of one k-step
-constexpr int T_STAGES = 3;
-constexpr int T_THREADS = 256;     // 8 warps: 2 (rows) x 4 (columns), 64 x 32 each
-constexpr int T_PAD = 8;           // bf16 of padding a row: ldmatrix rows on distinct banks
+constexpr int DW_BM = 128;                       // rows of dw (d) per tile: 2 warpgroups x 64
+constexpr int DW_BN = 256;                       // columns of dw (f) per tile
+constexpr int DW_BK = 64;                        // live rows (c) of one stage
+constexpr int DW_STAGES = 3;
+constexpr int DW_BOX = 64 * 64 * 2;              // one 64 x 64 bf16 box, 8 KB
+constexpr int DW_A_BYTES = DW_BM * DW_BK * 2;    // two x boxes a stage
+constexpr int DW_B_BYTES = DW_BN * DW_BK * 2;    // four dy boxes a stage
+constexpr int DW_OUT_BYTES = DW_BM * DW_BN * 2;  // the epilogue's tile: 4 boxes a warpgroup
+constexpr int DW_SMEM = DW_STAGES * (DW_A_BYTES + DW_B_BYTES) + DW_OUT_BYTES +
+                        2 * DW_STAGES * 8 + 1024;  // + alignment slack: 214,064 bytes
 
-// One C-major operand of dw, read by stride: element (row r, depth c) of
-// expert e at p[e * se + c * so + r].
-struct Operand {
-  const __nv_bfloat16* p;
-  long long se, so;
+struct DwTile {
+  int e, m0, n0;
 };
 
-constexpr int LDA = T_BM + T_PAD;  // [k][m] stage rows of A
-constexpr int LDB = T_BN + T_PAD;  // [k][n] stage rows of B
-constexpr int A_ELEMS = T_BK * LDA;
-constexpr int STAGE_ELEMS = A_ELEMS + T_BK * LDB;
-constexpr int T_SMEM = T_STAGES * STAGE_ELEMS * 2;
+// tile t of the expert-major order, the shorter of dw's two tile axes
+// fastest: the blocks running side by side then cover whole rows (or
+// columns) of tiles and share the slabs of the longer axis from L2 (at
+// mixtral's gate/up, D 4096 x F 14336: row tiles fastest; at down, D 14336
+// x F 4096: column tiles fastest)
+__device__ __forceinline__ DwTile dw_tile(int t, int m_tiles, int n_tiles) {
+  const int per_e = m_tiles * n_tiles;
+  const int local = t % per_e;
+  if (m_tiles <= n_tiles) return {t / per_e, (local % m_tiles) * DW_BM, (local / m_tiles) * DW_BN};
+  return {t / per_e, (local / n_tiles) * DW_BM, (local % n_tiles) * DW_BN};
+}
 
-// dw[e] (M x N, bf16, contiguous) = A[e] (M x K) B[e] (K x N) with A = x~^T
-// and B = dy, both MN-major (C-major), the depth (c) limited to the live rows.
-__global__ void __launch_bounds__(T_THREADS)
-gmmbwd_mma(Operand a, Operand b, const int* __restrict__ group_sizes,
-           __nv_bfloat16* __restrict__ out, int C, int M, int N) {
-  extern __shared__ __align__(16) unsigned char t_smem[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(t_smem);
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.x * T_BM, n0 = blockIdx.y * T_BN;
-  const int live = live_rows(group_sizes, e, C);
-  const int nk = (live + T_BK - 1) / T_BK;
-  const __nv_bfloat16* ae = a.p + e * a.se;
-  const __nv_bfloat16* be = b.p + e * b.se;
+// dw[e] (D x F) = x~[e]^T dy[e] over the live rows: tmap_x is x as (D, C, E)
+// and tmap_dy is dy as (F, C, E), both in 64 x 64 boxes; tmap_dw is dw as
+// (F, D, E) in 64 x 64 boxes.
+__global__ void __launch_bounds__(W_THREADS, 1)
+gmmbwd_dw_wgmma(const __grid_constant__ CUtensorMap tmap_x,
+                const __grid_constant__ CUtensorMap tmap_dy,
+                const __grid_constant__ CUtensorMap tmap_dw,
+                const int* __restrict__ group_sizes, int E, int C, int D, int F) {
+  extern __shared__ __align__(1024) uint8_t dw_smem_raw[];
+  const uint32_t raw = smem_u32(dw_smem_raw);
+  uint8_t* smem = dw_smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint8_t* as = smem;                                // [stage][2 boxes: 64 c x 64 d]
+  uint8_t* bs = as + DW_STAGES * DW_A_BYTES;         // [stage][4 boxes: 64 c x 64 f]
+  uint8_t* os = bs + DW_STAGES * DW_B_BYTES;         // [warpgroup][4 boxes: 64 d x 64 f]
+  uint64_t* full = reinterpret_cast<uint64_t*>(os + DW_OUT_BYTES);
+  uint64_t* empty = full + DW_STAGES;
+
   const int tid = threadIdx.x;
-
-  auto load_stage = [&](int stage, int kt) {  // [k][row]: 16 16-byte chunks a k row
-    const int k0 = kt * T_BK;
-    __nv_bfloat16* as = sm + stage * STAGE_ELEMS;
-    __nv_bfloat16* bs = as + A_ELEMS;
-    for (int i = tid; i < T_BK * ((T_BM + T_BN) / 8); i += T_THREADS) {
-      const bool is_a = i < T_BK * (T_BM / 8);
-      const int j = is_a ? i : i - T_BK * (T_BM / 8);
-      const int r = j / (T_BM / 8), c = (j % (T_BM / 8)) * 8;
-      const int col = (is_a ? m0 : n0) + c;
-      const bool ok = k0 + r < live && col < (is_a ? M : N);
-      const Operand& o = is_a ? a : b;
-      const __nv_bfloat16* base = is_a ? ae : be;
-      cp_async16((is_a ? as + r * LDA : bs + r * LDB) + c,
-                 ok ? base + (long long)(k0 + r) * o.so + col : base, ok);
+  const int m_tiles = (D + DW_BM - 1) / DW_BM, n_tiles = (F + DW_BN - 1) / DW_BN;
+  const int total = E * m_tiles * n_tiles;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < DW_STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 2);  // one arrival per consumer warpgroup
     }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;        // rows wm*64, columns wn*32
-  const int q = lane >> 3, r8 = lane & 7;          // the 8x8 matrix this lane addresses
-
-#pragma unroll
-  for (int s = 0; s < T_STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<T_STAGES - 2>();  // k-step kt has landed
-    __syncthreads();                // ... for every thread; step kt-1 is consumed
-    const int next = kt + T_STAGES - 1;
-    if (next < nk) load_stage(next % T_STAGES, next);
-    cp_async_commit();
-    const __nv_bfloat16* as = sm + (kt % T_STAGES) * STAGE_ELEMS;
-    const __nv_bfloat16* bs = as + A_ELEMS;
+  __syncthreads();
+
+  if (tid >= W_CONSUMERS) {  // producer warp: one thread issues the copies
+    if (tid == W_CONSUMERS) {
+      int it = 0;  // ring position, continued from tile to tile
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const DwTile tl = dw_tile(t, m_tiles, n_tiles);
+        const int nk = (live_rows(group_sizes, tl.e, C) + DW_BK - 1) / DW_BK;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % DW_STAGES;
+          mbar_wait(smem_u32(&empty[s]), ((it / DW_STAGES) & 1) ^ 1);
+          const uint32_t fb = smem_u32(&full[s]);
+          mbar_expect_tx(fb, DW_A_BYTES + DW_B_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < T_BK; kk += 16) {
-      uint32_t af[4][4], bf[2][4];
+          for (int i = 0; i < DW_BM / 64; ++i)
+            tma_load_3d(smem_u32(as + s * DW_A_BYTES + i * DW_BOX), &tmap_x, fb, tl.m0 + i * 64,
+                        kt * DW_BK, tl.e);
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int m = wm * 64 + mi * 16;  // [k][m], transposed on the way
-        ldsm_x4_trans(smem_u32(as + (kk + (q >> 1) * 8 + r8) * LDA + m + (q & 1) * 8), af[mi]);
+          for (int i = 0; i < DW_BN / 64; ++i)
+            tma_load_3d(smem_u32(bs + s * DW_B_BYTES + i * DW_BOX), &tmap_dy, fb,
+                        tl.n0 + i * 64, kt * DW_BK, tl.e);
+        }
       }
+    }
+    return;
+  }
+
+  // consumer warpgroup: rows wg*64 .. +64 of the tile; read through a shuffle
+  // so ptxas knows it is the same in every lane of a warp (else it
+  // serializes the wgmmas)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int wtid = tid & 127, lane = tid & 31;
+  uint8_t* ob = os + wg * (DW_OUT_BYTES / 2);
+  float acc[128];
+  int it = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const DwTile tl = dw_tile(t, m_tiles, n_tiles);
+    const int live = live_rows(group_sizes, tl.e, C);
+    const int nk = (live + DW_BK - 1) / DW_BK;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % DW_STAGES;
+      mbar_wait(smem_u32(&full[s]), (it / DW_STAGES) & 1);
+      uint8_t* a_box = as + s * DW_A_BYTES + wg * DW_BOX;
+      const int lines = live - kt * DW_BK;  // live c-lines of this k-tile
+      if (lines < DW_BK) {
+        // the last k-tile: zero c-lines [lines, 64) of this warpgroup's x box
+        // (TMA zero-filled only past C), 8 16-byte stores a 128-byte line, as
+        // predicated stores of a fixed count (a loop whose trip count differs
+        // between threads here makes ptxas serialize the wgmmas)
+        uint4* box = reinterpret_cast<uint4*>(a_box);
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {  // two n8 tiles: b0, b1 of the first, then the second
-        const int n = wn * 32 + p * 16;  // [k][n]
-        ldsm_x4_trans(smem_u32(bs + (kk + (q & 1) * 8 + r8) * LDB + n + (q >> 1) * 8), bf[p]);
+        for (int j = 0; j < DW_BK * 8 / 128; ++j) {
+          const int idx = j * 128 + wtid;
+          if (idx >= lines * 8) box[idx] = make_uint4(0u, 0u, 0u, 0u);
+        }
+        fence_proxy_async();  // visible to wgmma, which reads through the async proxy
+        named_barrier(1 + wg, 128);
       }
+      wgmma_fence();
+      const uint64_t da = gmma_desc_mn(smem_u32(a_box), DW_BOX);
+      const uint64_t db = gmma_desc_mn(smem_u32(bs + s * DW_B_BYTES), DW_BOX);
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+      for (int j = 0; j < DW_BK / 16; ++j)  // 16 c-lines = 2048 bytes of either box
+        wgmma_m64n256k16<1, 1>(acc, da + (2048 >> 4) * j, db + (2048 >> 4) * j,
+                               kt > 0 || j > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the product of step it-1 is done: release its stage
+      if (kt > 0 && wtid == 0) mbar_arrive(smem_u32(&empty[(it - 1) % DW_STAGES]));
+    }
+    if (nk > 0) {
+      wgmma_wait<0>();
+      if (wtid == 0) mbar_arrive(smem_u32(&empty[(it - 1) % DW_STAGES]));
+      fence_acc<128>(acc);
+    }
+    // no live row: dw[e] is zero (selected below, so that no instruction but
+    // wgmma defines the accumulators)
+    const bool keep = nk > 0;
+
+    // epilogue: the previous tile's stores must have read the buffer first
+    if (wtid == 0) bulk_wait_group_read<0>();
+    named_barrier(1 + wg, 128);
+    // accumulator fragment: row r = (warp%4)*16 + lane/4 (+8) of the warpgroup's
+    // 64, columns 8c + 2*(lane%4) (+1); column group c lies in box c/8 as its
+    // 16-byte chunk c%8 of row r, at chunk (c%8) ^ (r%8) under the 128-byte
+    // swizzle (rows r and r + 8 share the pattern)
+    const int r = ((tid >> 5) & 3) * 16 + (lane >> 2);
 #pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-          mma_bf16(acc[mi][nj], af[mi], bf[nj >> 1][2 * (nj & 1)], bf[nj >> 1][2 * (nj & 1) + 1]);
+    for (int c = 0; c < DW_BN / 8; ++c) {
+      uint8_t* p = ob + (c >> 3) * DW_BOX + r * 128 + (((c & 7) ^ (r & 7)) << 4) + (lane & 3) * 4;
+      *reinterpret_cast<__nv_bfloat162*>(p) = keep
+          ? __floats2bfloat162_rn(acc[4 * c], acc[4 * c + 1]) : __floats2bfloat162_rn(0.f, 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * 128) = keep
+          ? __floats2bfloat162_rn(acc[4 * c + 2], acc[4 * c + 3])
+          : __floats2bfloat162_rn(0.f, 0.f);
+    }
+    fence_proxy_async();  // the buffer's writes visible to the TMA store
+    named_barrier(1 + wg, 128);
+    if (wtid == 0) {  // rows past D and columns past F are clipped by the store
+#pragma unroll
+      for (int i = 0; i < DW_BN / 64; ++i)
+        tma_store_3d(&tmap_dw, smem_u32(ob + i * DW_BOX), tl.n0 + i * 64, tl.m0 + wg * 64, tl.e);
+      bulk_commit_group();
     }
   }
-  cp_async_wait<0>();
-
-  // accumulator fragment: row g (+8) of the m16 tile, columns 2c, 2c+1 of the n8 tile
-  __nv_bfloat16* oe = out + (long long)e * M * N;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + h * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int col = n0 + wn * 32 + nj * 8 + 2 * (lane & 3);
-        if (col < N)  // N % 8 == 0: col + 1 < N as well
-          *reinterpret_cast<__nv_bfloat162*>(oe + (long long)row * N + col) =
-              __floats2bfloat162_rn(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
-      }
-    }
+  if (wtid == 0) bulk_wait_group<0>();
 }
 
 // The float32 kernel: 64 x 64 output tiles, 16-deep k-steps, 256 threads of
@@ -247,12 +310,17 @@ int set_smem(Kernel kernel, int bytes, bool& configured) {
   return 0;
 }
 
+// persistent blocks: one an SM, or one a tile when the tiles are fewer
+int persistent_grid(int sms, long long tiles) {
+  return static_cast<int>(tiles < sms ? (tiles > 0 ? tiles : 1) : sms);
+}
+
 int launch_dx_wgmma(const void* dy, const void* w, const int* gs, void* dx, int E, int C, int D,
-                    int F, long long sde, long long sdc, long long swe, long long swd, int grid,
+                    int F, long long sde, long long sdc, long long swe, long long swd, int sms,
                     cudaStream_t stream) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  if (E > W_MAX_E || grid < 1 || D % 8 || F % 8 || sde % 8 || sdc % 8 || swe % 8 || swd % 8 ||
+  if (E > W_MAX_E || sms < 1 || D % 8 || F % 8 || sde % 8 || sdc % 8 || swe % 8 || swd % 8 ||
       reinterpret_cast<uintptr_t>(dy) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tdy, tw;
@@ -262,18 +330,33 @@ int launch_dx_wgmma(const void* dy, const void* w, const int* gs, void* dx, int 
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
   if (int err = set_smem(gmmbwd_dx_wgmma, W_SMEM, configured)) return err;
+  const int grid = persistent_grid(
+      sms, (long long)E * ((C + W_BM - 1) / W_BM) * ((D + W_BN - 1) / W_BN));
   gmmbwd_dx_wgmma<<<grid, W_THREADS, W_SMEM, stream>>>(
       tdy, tw, gs, static_cast<__nv_bfloat16*>(dx), E, C, D, F);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dw_mma(Operand a, Operand b, const int* gs, void* out, int E, int C, int M, int N,
-                  cudaStream_t stream) {
+int launch_dw_wgmma(const void* x, const void* dy, const int* gs, void* dw, int E, int C, int D,
+                    int F, long long sxe, long long sxc, long long sde, long long sdc, int sms,
+                    cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (sms < 1 || D % 8 || F % 8 || sxe % 8 || sxc % 8 || sde % 8 || sdc % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(dy) % 16 ||
+      reinterpret_cast<uintptr_t>(dw) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tx, tdy, tdw;
+  // x (E, C, D) and dy (E, C, F) MN-major, dw (E, D, F) contiguous: 64 x 64 boxes
+  if (encode_bf16_3d(encode, &tx, x, D, C, E, sxc, sxe, 64, 64) != CUDA_SUCCESS ||
+      encode_bf16_3d(encode, &tdy, dy, F, C, E, sdc, sde, 64, 64) != CUDA_SUCCESS ||
+      encode_bf16_3d(encode, &tdw, dw, F, D, E, F, (long long)D * F, 64, 64) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
-  if (int err = set_smem(gmmbwd_mma, T_SMEM, configured)) return err;
-  const dim3 grid((M + T_BM - 1) / T_BM, (N + T_BN - 1) / T_BN, E);
-  gmmbwd_mma<<<grid, T_THREADS, T_SMEM, stream>>>(a, b, gs, static_cast<__nv_bfloat16*>(out),
-                                                 C, M, N);
+  if (int err = set_smem(gmmbwd_dw_wgmma, DW_SMEM, configured)) return err;
+  const int grid = persistent_grid(
+      sms, (long long)E * ((D + DW_BM - 1) / DW_BM) * ((F + DW_BN - 1) / DW_BN));
+  gmmbwd_dw_wgmma<<<grid, W_THREADS, DW_SMEM, stream>>>(tx, tdy, tdw, gs, E, C, D, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -289,20 +372,19 @@ int launch_fma(OperandF a, OperandF b, const int* gs, void* out, int E, int C, i
 
 // Paths, as kernels/moe_gmm_bwd.py numbers them.
 #define GBWD_PATH_FMA 0
-#define GBWD_PATH_MMA 1
-#define GBWD_PATH_WGMMA 2
+#define GBWD_PATH_WGMMA 1
 
 // x: (E, C, D) with strides (sxe, sxc, 1); w: (E, D, F) with strides (swe,
 // swd, 1); dy: (E, C, F) with strides (sde, sdc, 1); group_sizes: (E,) int32
 // on the device, or null for all C rows; dx (E, C, D) and dw (E, D, F)
-// contiguous, either null when not asked for.  dx_path: fma / wgmma (grid:
-// its persistent blocks); dw_path: fma / mma.  bf16 needs D, F and
-// every row stride a multiple of 8 and 16-byte aligned x, w, dy (the wrapper
-// checks).
+// contiguous, either null when not asked for.  dx_path, dw_path: fma (f32)
+// or wgmma (bf16), each on a persistent grid of at most `sms` blocks.  bf16
+// needs D, F and every row and expert stride a multiple of 8 and 16-byte
+// aligned x, w, dy (the wrapper checks).
 extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* group_sizes,
                            const void* dy, void* dx, void* dw, int dtype, int E, int C, int D,
                            int F, long long sxe, long long sxc, long long swe, long long swd,
-                           long long sde, long long sdc, int dx_path, int dw_path, int grid,
+                           long long sde, long long sdc, int dx_path, int dw_path, int sms,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gs = static_cast<const int*>(group_sizes);
@@ -311,7 +393,7 @@ extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* group_sizes
   if (dx != nullptr) {
     int err;
     if (dx_path == GBWD_PATH_WGMMA && bf16) {
-      err = launch_dx_wgmma(dy, w, gs, dx, E, C, D, F, sde, sdc, swe, swd, grid, s);
+      err = launch_dx_wgmma(dy, w, gs, dx, E, C, D, F, sde, sdc, swe, swd, sms, s);
     } else if (dx_path == GBWD_PATH_FMA && !bf16) {
       err = launch_fma<true>({static_cast<const float*>(dy), sde, sdc},
                              {static_cast<const float*>(w), swe, swd}, gs, dx, E, C, C, D, F, s);
@@ -322,10 +404,8 @@ extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* group_sizes
   }
   if (dw != nullptr) {
     // dw (D x F) = x~^T (rows d, depth c: x is C-major) dy (depth c, columns f)
-    if (dw_path == GBWD_PATH_MMA && bf16)
-      return launch_dw_mma({static_cast<const __nv_bfloat16*>(x), sxe, sxc},
-                           {static_cast<const __nv_bfloat16*>(dy), sde, sdc}, gs, dw, E, C, D,
-                           F, s);
+    if (dw_path == GBWD_PATH_WGMMA && bf16)
+      return launch_dw_wgmma(x, dy, gs, dw, E, C, D, F, sxe, sxc, sde, sdc, sms, s);
     if (dw_path == GBWD_PATH_FMA && !bf16)
       return launch_fma<false>({static_cast<const float*>(x), sxe, sxc},
                                {static_cast<const float*>(dy), sde, sdc}, gs, dw, E, C, D, F, C,

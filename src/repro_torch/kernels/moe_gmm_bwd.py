@@ -12,13 +12,12 @@ and x, w and dy by stride (unit stride on the last axis).
 
 ``plan`` chooses each gradient's path from the dtype alone (nothing is
 tried and nothing falls back):
-  dx  fma    float32 (true float32 FMAs for the parity tests);
-      wgmma  bf16: K4 forward's TMA + wgmma body with w^T read K-major in
-             place (dy and w must be tensor maps, at most WGMMA_MAX_E
-             experts: the wrapper raises otherwise).
-  dw  fma    float32;
-      mma    bf16: mma.sync tiles over the ragged live rows, x and dy
-             through ldmatrix.trans.
+  fma    float32, both gradients (true float32 FMAs for the parity tests);
+  wgmma  bf16, both: dx on K4 forward's TMA + wgmma body with w^T read
+         K-major in place (dy and w must be tensor maps, at most WGMMA_MAX_E
+         experts), dw on a persistent TMA + wgmma kernel reading x and dy
+         MN-major in place over the live rows and storing dw through TMA (x
+         and dy must be tensor maps); the wrapper raises otherwise.
 """
 
 from __future__ import annotations
@@ -29,23 +28,23 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.moe_gmm import WGMMA_MAX_E, _map_ok, wgmma_grid
+from repro_torch.kernels.moe_gmm import WGMMA_MAX_E, _map_ok
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"moe_gmm_bwd": ([_P] * 6 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_P],
                                ctypes.c_int)}
-PATHS = {"fma": 0, "mma": 1, "wgmma": 2}   # csrc/moe_gmm_bwd.cu GBWD_PATH_*
-DW_BK = 32   # live rows of one k-tile of the mma path's dw (csrc T_BK)
+PATHS = {"fma": 0, "wgmma": 1}   # csrc/moe_gmm_bwd.cu GBWD_PATH_*
+DW_BK = 64   # live rows of one k-tile (one TMA stage) of dw's wgmma path (csrc DW_BK)
 
 
 class Plan(NamedTuple):
     dx: str   # fma / wgmma
-    dw: str   # fma / mma
+    dw: str   # fma / wgmma
 
 
 def plan(dtype: torch.dtype) -> Plan:
     """The paths of dx and dw for operands of ``dtype``."""
-    return Plan("fma", "fma") if dtype == torch.float32 else Plan("wgmma", "mma")
+    return Plan("fma", "fma") if dtype == torch.float32 else Plan("wgmma", "wgmma")
 
 
 def plan_call(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> Plan:
@@ -95,6 +94,9 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes, dy: torch.Tensor,
         raise ValueError(f"moe_gmm_bwd: bf16 dx reads dy and w as tensor maps, at most "
                          f"{WGMMA_MAX_E} experts; got E {E}, strides {dy.stride()} "
                          f"{w.stride()}")
+    if x.dtype == torch.bfloat16 and need_dw and not (_map_ok(x) and _map_ok(dy)):
+        raise ValueError(f"moe_gmm_bwd: bf16 dw reads x and dy as tensor maps; got "
+                         f"strides {x.stride()} {dy.stride()}")
     dx = torch.empty((E, C, D), dtype=x.dtype, device=x.device) if need_dx else None
     dw = torch.empty((E, D, F), dtype=w.dtype, device=x.device) if need_dw else None
     if dx is None and dw is None:
@@ -107,7 +109,7 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes, dy: torch.Tensor,
         None if dx is None else dx.data_ptr(), None if dw is None else dw.data_ptr(),
         build.DTYPE_CODES[x.dtype], E, C, D, F, x.stride(0), x.stride(1), w.stride(0),
         w.stride(1), dy.stride(0), dy.stride(1), PATHS[p.dx], PATHS[p.dw],
-        wgmma_grid(E, C, D, build.sm_count(x.device.index)), build.current_stream())
+        build.sm_count(x.device.index), build.current_stream())
     build.check(lib, code, f"moe_gmm_bwd (dx {p.dx}, dw {p.dw})")
     moe_gmm_bwd.launches += 1
     return dx, dw

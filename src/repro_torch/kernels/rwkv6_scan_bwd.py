@@ -12,7 +12,8 @@ stride (unit head-dim stride); dr, dk, dv and dw are allocated in
 model's (B, T, D) projections.
 
 ``plan`` splits each head's value columns across blocks from the shapes
-alone, never from T or the data.
+alone, never from the data, and states what the card holds of them: the
+threads and shared bytes of a block, the blocks an SM and the waves.
 """
 
 from __future__ import annotations
@@ -27,21 +28,47 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.rwkv6_scan import CHECKPOINT_EVERY, HEAD_DIMS, _bht, checkpoint_shape
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"rwkv6_scan_bwd": ([_P] * 16 + [_I] * 4 + [_L] * 27 + [_P], ctypes.c_int)}
+_SIGNATURES = {"rwkv6_scan_bwd": ([_P] * 15 + [_I] * 4 + [_L] * 27 + [_P], ctypes.c_int)}
 COLUMN_SLICE = 16   # value columns of one block (csrc JB)
+THREADS_PER_ROW = 4  # threads of one state row, 4 columns each (csrc JB / QCOLS)
+HALF_CHUNK = 8       # states held at once (csrc HALF)
+SM_SHARED_BYTES = 233_472   # shared memory of an H100 SM (228 KB)
+BLOCK_RESERVED_BYTES = 1024  # shared memory the card reserves for each block
+SM_THREADS = 2048
 
 
 class Plan(NamedTuple):
-    jb: int        # value columns of one block: B * H * slices blocks of dh threads
-    slices: int    # blocks per head, each writing partial dr, dk, dw summed in order
-    chunks: int    # chunks of CHECKPOINT_EVERY steps, recomputed last first
+    jb: int             # value columns of one block
+    slices: int         # blocks per head, one cluster, their partial dr, dk, dw summed in order
+    chunks: int         # chunks of CHECKPOINT_EVERY steps, recomputed last first
+    threads: int        # threads of one block: THREADS_PER_ROW a state row
+    smem_bytes: int     # dynamic shared memory of one block
+    blocks_per_sm: int  # blocks an SM holds by shared memory and threads
+    waves: int          # rounds of blocks on ``sms`` SMs
+
+
+def smem_bytes(dh: int) -> int:
+    """csrc scan_smem_floats: HALF_CHUNK states of dh x COLUMN_SLICE floats, two
+    buffers of a chunk's r, k, w (dh wide) and v, dout (the slice's columns),
+    and two buffers of a half-chunk's partial dr, dk, dw (dh wide)."""
+    chunk_inputs = 3 * CHECKPOINT_EVERY * dh + 2 * CHECKPOINT_EVERY * COLUMN_SLICE
+    partials = 3 * HALF_CHUNK * dh
+    return 4 * (HALF_CHUNK * dh * COLUMN_SLICE + 2 * chunk_inputs + 2 * partials)
 
 
 @functools.lru_cache(maxsize=None)
-def plan(B: int, H: int, T: int, dh: int) -> Plan:
-    """Slices of COLUMN_SLICE value columns: at rwkv6-3b's training shape (B 2,
-    H 40, dh 64) 320 blocks, two an SM by their 81 KB of shared memory."""
-    return Plan(COLUMN_SLICE, dh // COLUMN_SLICE, -(-T // CHECKPOINT_EVERY))
+def plan(B: int, H: int, T: int, dh: int, sms: int = 132) -> Plan:
+    """Slices of COLUMN_SLICE value columns, B * H * slices blocks of 4 dh
+    threads, the slices of a head one cluster: at rwkv6-3b's training shape
+    (B 2, H 40, dh 64) 320 blocks of 256 threads and 73,728 shared bytes,
+    three an SM, one wave on 132 SMs."""
+    slices = dh // COLUMN_SLICE
+    threads = THREADS_PER_ROW * dh
+    smem = smem_bytes(dh)
+    per_sm = min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES), SM_THREADS // threads)
+    blocks = B * H * slices
+    return Plan(COLUMN_SLICE, slices, -(-T // CHECKPOINT_EVERY), threads, smem, per_sm,
+                -(-blocks // (per_sm * sms)))
 
 
 def rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final=None, *, checkpoints=None):
@@ -80,22 +107,21 @@ def rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final=None, *, checkpoints=None):
         raise ValueError("rwkv6_scan_bwd: all operands must be on one device")
     if any(t.stride(3) != 1 for t in (r, k, v, w)):
         raise ValueError("rwkv6_scan_bwd: the head dim of r, k, v, w must be contiguous")
-    p = plan(B, H, T, dh)
+    p = plan(B, H, T, dh, build.sm_count(r.device.index))
     dr, dk, dv, dw = (torch.empty((B, T, H, dh), dtype=torch.float32, device=r.device)
                       .transpose(1, 2) for _ in range(4))
     du = torch.empty((H, dh), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
-    # each slice's partial dr, dk, dw and du, summed in slice order by the reduce kernel
-    part = torch.empty((3, p.slices, B, H, T, dh), dtype=torch.float32, device=r.device)
+    # each slice's partial du, summed in slice order by the second kernel
     du_part = torch.empty((p.slices, B, H, dh), dtype=torch.float32, device=r.device)
     lib = build.library("rwkv6_scan_bwd", _SIGNATURES)
     code = lib.rwkv6_scan_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         checkpoints.data_ptr(), dout.data_ptr(),
         None if ds_final is None else ds_final.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), part.data_ptr(),
-        du_part.data_ptr(), B, H, T, dh, *_bht(r), *_bht(k), *_bht(v), *_bht(w), *_bht(dout),
-        *_bht(dr), *_bht(dk), *_bht(dv), *_bht(dw), build.current_stream())
+        dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), du_part.data_ptr(), B, H,
+        T, dh, *_bht(r), *_bht(k), *_bht(v), *_bht(w), *_bht(dout), *_bht(dr), *_bht(dk),
+        *_bht(dv), *_bht(dw), build.current_stream())
     build.check(lib, code, "rwkv6_scan_bwd")
     rwkv6_scan_bwd.launches += 1
     return dr, dk, dv, dw, du, ds0

@@ -966,13 +966,18 @@ def test_train_step_remat_and_microbatches_card_vs_cpu(gen, arch, kwargs):
     (8, 320, 256, 512, [320, 300, 0, 1, 129, 128, 64, 250]),   # mixtral's training C
     (2, 32, 64, 48, [32, 7]),                     # C <= 32: dx on wgmma, one short tile
     (3, 12, 1032, 136, [12, 0, 5]),
+    (8, 320, 256, 512, [0, 1, 15, 63, 64, 65, 319, 320]),   # every k-tile edge of dw
+    (8, 320, 200, 264, [320, 0, 65, 64, 1, 0, 319, 63]),    # D, F off dw's 128 x 256 tile
+    (3, 24, 136, 72, [24, 0, 13]),                # C <= 32: one short k-tile of dw
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_gmm_bwd_kernel(gen, E, C, D, F, sizes, dtype):
     """dx and dw against the plain version (2e-4 f32; 2e-2 bf16, atol scaled
     to the largest value); rows past group_sizes[e] exact zeros in dx; an
     expert with no live row gets a zero dw; two calls give the same bits;
-    each gradient alone when only it is asked for."""
+    each gradient alone when only it is asked for.  bf16 dw's contraction
+    ends at each expert's live rows: live counts at and around its 64-row
+    k-tile edges, all of C and none."""
     x = torch.randn(E, C, D, generator=gen, device="cuda").to(dtype)
     w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(dtype)
     dy = torch.randn(E, C, F, generator=gen, device="cuda").to(dtype)
@@ -998,16 +1003,18 @@ def test_moe_gmm_bwd_kernel(gen, E, C, D, F, sizes, dtype):
 
 
 def test_moe_gmm_bwd_paths(gen):
-    """bf16 takes wgmma for dx in the model's layouts; a dy with misaligned
-    rows, or one that is no tensor map (rows overlapping), is refused, never
-    sent down another path; in a CUDA graph, replays with new group sizes
-    give the plain version's."""
+    """bf16 takes wgmma for dx and dw in the model's layouts; a dy with
+    misaligned rows, or one that is no tensor map (rows overlapping), and an
+    x that is no tensor map, are refused, never sent down another path; in
+    a CUDA graph, replays with new group sizes give the plain version's."""
     E, C, D, F = 4, 64, 128, 256
     x = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(torch.bfloat16)
     dy = torch.randn(E, C, F, generator=gen, device="cuda").to(torch.bfloat16)
     gs = torch.tensor([64, 3, 0, 40], dtype=torch.int32, device="cuda")
-    assert k4b.plan_call(x, w, dy) == k4b.Plan("wgmma", "mma")
+    assert k4b.plan_call(x, w, dy) == k4b.Plan("wgmma", "wgmma")
+    with pytest.raises(ValueError, match="dw reads x and dy as tensor maps"):
+        ops.moe_gmm_bwd(x[:, :1].expand(E, C, D), w, gs, dy, need_dx=False)
     odd = torch.randn(E * C, F + 4, generator=gen, device="cuda").to(torch.bfloat16)
     odd[:, :F] = dy.reshape(E * C, F)
     dy_odd = odd[:, :F].view(E, C, F)
@@ -1037,14 +1044,16 @@ def test_moe_gmm_bwd_paths(gen):
 
 
 @pytest.mark.parametrize("B,H,T,dh", [(1, 2, 1, 16), (2, 3, 37, 32), (2, 4, 70, 64),
-                                      (1, 2, 64, 64)])
+                                      (1, 2, 64, 64)] + [
+    (2, 3, T, dh) for T in (1, 8, 9, 17, 200) for dh in (16, 32, 64)])
 @pytest.mark.parametrize("ds_final", [True, False])
 def test_rwkv6_scan_bwd_kernel(gen, B, H, T, dh, ds_final):
     """The reverse scan against the plain version at 2e-4 (atol scaled to
     the largest value), r/k/v/w as (B, H, T, dh) views of (B, T, H, dh)
-    memory as the model passes them, T ragged against the checkpoints; two
-    calls give the same bits; the forward's output is unchanged by writing
-    the checkpoints."""
+    memory as the model passes them, T ragged against the checkpoints and
+    against the two 8-step halves a chunk is walked in (1, 8, 9, 17, 200);
+    two calls give the same bits; the forward's output is unchanged by
+    writing the checkpoints."""
     def rnd(*shape, scale=0.5):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 

@@ -74,30 +74,32 @@ def test_moe_gmm_bwd_computes_what_is_asked():
 
 
 def _dw_tiled(x, dy, gs, bk):
-    """csrc/moe_gmm_bwd.cu's dw (gmmbwd_mma over C-major operands) in plain
-    PyTorch: per expert, k-tiles of ``bk`` rows of C in order, the loop
-    ending at the expert's last live row and the copy zero-filling the rows
-    at or past group_sizes[e] (and past C) in the last k-tile; an expert
-    with no live row writes zeros."""
+    """csrc/moe_gmm_bwd.cu's dw (gmmbwd_dw_wgmma over MN-major operands) in
+    plain PyTorch: per expert, k-tiles (TMA stages) of ``bk`` rows of C in
+    order, the loop ending at the expert's last live row; TMA zero-fills the
+    rows past C in both operands, and the consumers zero the x rows at or
+    past group_sizes[e] of the last k-tile (dy's rows there come in as they
+    are); an expert with no live row writes zeros."""
     E, C, D = x.shape
     out = torch.zeros((E, D, dy.shape[2]))
     for e in range(E):
         live = int(gs[e])
         for c0 in range(0, live, bk):
             rows = torch.arange(c0, c0 + bk)
-            ok = (rows < live)[:, None]
-            xs = torch.where(ok, x[e, rows.clamp(max=C - 1)], 0.0)   # the staged tile
-            ds = torch.where(ok, dy[e, rows.clamp(max=C - 1)], 0.0)
+            in_c = (rows < C)[:, None]
+            xs = torch.where((rows < live)[:, None], x[e, rows.clamp(max=C - 1)], 0.0)
+            ds = torch.where(in_c, dy[e, rows.clamp(max=C - 1)], 0.0)
             out[e] += xs.T @ ds
     return out
 
 
-@pytest.mark.parametrize("sizes", [[0, 40, 33, 7], [32, 31, 1, 40]])
+@pytest.mark.parametrize("sizes", [[0, 140, 64, 65], [128, 127, 1, 129]])
 def test_moe_gmm_bwd_dw_ragged_k_tile_model(sizes):
-    """dw's k-tiles over the live rows, the last one masked in shared memory:
-    a tile wholly live (32), a tile cut one row short (31, 33), one row (1),
-    C itself past the tile (40) and an empty expert (0)."""
-    x, w, gs, dy = _moe_inputs(4, 40, 24, 16, sizes, seed=7)
+    """dw's k-tiles over the live rows, the last one's dead x rows zeroed in
+    shared memory: whole tiles (64, 128), a tile cut one row short (127), one
+    row past a tile (65, 129), one row (1), C itself past the last tile (140)
+    and an empty expert (0)."""
+    x, w, gs, dy = _moe_inputs(4, 140, 24, 16, sizes, seed=7)
     got = _dw_tiled(torch.from_numpy(x), torch.from_numpy(dy), gs, k4b.DW_BK)
     _close(got, _moe_vjp(x, w, gs, dy)[1])
 
@@ -158,15 +160,30 @@ def test_rwkv6_scan_checkpoints_are_the_states_entering_each_chunk():
         ops.rwkv6_scan(*t, checkpoints=torch.zeros((1, 2, 2, 16, 16)))
 
 
+def _quarters(a):
+    """The sums over the last axis (a slice's columns) of each of a row's four
+    threads, over its 4 columns in order."""
+    return [a[..., 4 * j] + a[..., 4 * j + 1] + a[..., 4 * j + 2] + a[..., 4 * j + 3]
+            for j in range(a.shape[-1] // 4)]
+
+
+def _lanes_sum(q):
+    """Four lanes' values summed as the kernel does: (0 + 1) + (2 + 3)."""
+    return (q[0] + q[1]) + (q[2] + q[3])
+
+
 def _wkv_bwd_sliced(r, k, v, w, u, dout, dsf, ckpt, p):
     """csrc/rwkv6_scan_bwd.cu in plain PyTorch: one block per (value-column
-    slice of p.jb, head, batch), thread i holding row i; chunks of
-    CHECKPOINT_EVERY steps last first, each chunk's states recomputed from its
-    checkpoint; per step this slice's partial dr, dk, dw and its share of
-    du, and dv from the rows' contributions summed in row order; then the
-    reduce: partials summed in slice order, du in (b, slice) order."""
+    slice of p.jb, head, batch), four threads a row, 4 columns each; chunks
+    of CHECKPOINT_EVERY steps last first, each walked in two halves (steps
+    8.. then 0..7), each half's states recomputed from the chunk's
+    checkpoint; per step this slice's partial dr, dk, dw and its share of du,
+    each thread's 4 columns combined first, then the row's four lanes; dv
+    after each half from the rows' contributions, even rows and odd rows
+    each in order, then added; dr, dk, dw from the cluster's partials summed
+    in slice order, du in (b, slice) order."""
     B, H, T, dh = r.shape
-    CK = k5.CHECKPOINT_EVERY
+    CK, HALF = k5.CHECKPOINT_EVERY, k5b.HALF_CHUNK
     parts = torch.zeros((3, p.slices, B, H, T, dh))
     du_part = torch.zeros((p.slices, B, H, dh))
     dv = torch.zeros((B, H, T, dh))
@@ -176,28 +193,39 @@ def _wkv_bwd_sliced(r, k, v, w, u, dout, dsf, ckpt, p):
         dS = dsf[:, :, :, cols].clone()
         for ch in reversed(range(p.chunks)):
             t0, n = ch * CK, min(CK, T - ch * CK)
-            S = ckpt[:, :, ch, :, cols].clone()
-            states = []
-            for tt in range(n):                       # recompute the chunk
-                states.append(S)
-                t = t0 + tt
-                S = w[:, :, t, :, None] * S + k[:, :, t, :, None] * v[:, :, t, None, cols]
-            for tt in reversed(range(n)):             # and step back through it
-                t = t0 + tt
-                rt, kt, wt = r[:, :, t], k[:, :, t], w[:, :, t]
-                vj, dj = v[:, :, t, cols], dout[:, :, t, cols]
-                st = states[tt]
-                vdo = (vj * dj).sum(-1, keepdim=True)
-                parts[0, s, :, :, t] = u * kt * vdo + (dj[:, :, None, :] * st).sum(-1)
-                parts[1, s, :, :, t] = rt * u * vdo + (dS * vj[:, :, None, :]).sum(-1)
-                parts[2, s, :, :, t] = (dS * st).sum(-1)
-                du_part[s] += rt * kt * vdo
-                contrib = kt[..., None] * dS + (rt * u * kt)[..., None] * dj[:, :, None, :]
-                acc = torch.zeros_like(vj)
-                for i in range(dh):                   # the rows, in order
-                    acc = acc + contrib[:, :, i]
-                dv[:, :, t, cols] = acc
-                dS = wt[..., None] * dS + rt[..., None] * dj[:, :, None, :]
+            for base in ([HALF, 0] if n > HALF else [0]):
+                cnt = n - HALF if base else min(n, HALF)
+                S = ckpt[:, :, ch, :, cols].clone()
+                states = []
+                for tt in range(base + cnt):          # recompute; keep the half's states
+                    if tt >= base:
+                        states.append(S)
+                    t = t0 + tt
+                    S = w[:, :, t, :, None] * S + k[:, :, t, :, None] * v[:, :, t, None, cols]
+                contribs = []
+                for tt in reversed(range(cnt)):       # and step back through them
+                    t = t0 + base + tt
+                    rt, kt, wt = r[:, :, t], k[:, :, t], w[:, :, t]
+                    vj, dj = v[:, :, t, cols], dout[:, :, t, cols]
+                    st = states[tt]
+                    # each thread's 4 columns of the partials, then the row's lanes
+                    vdo = [c[..., None] for c in _quarters(vj * dj)]
+                    sdo = _quarters(dj[:, :, None, :] * st)
+                    dsv = _quarters(dS * vj[:, :, None, :])
+                    parts[0, s, :, :, t] = _lanes_sum([u * kt * a + b for a, b in zip(vdo, sdo)])
+                    parts[1, s, :, :, t] = _lanes_sum([rt * u * a + b for a, b in zip(vdo, dsv)])
+                    parts[2, s, :, :, t] = _lanes_sum(_quarters(dS * st))
+                    du_part[s] += _lanes_sum([rt * kt * a for a in vdo])
+                    contribs.append((t, kt[..., None] * dS
+                                     + (rt * u * kt)[..., None] * dj[:, :, None, :]))
+                    dS = wt[..., None] * dS + rt[..., None] * dj[:, :, None, :]
+                for t, contrib in contribs:           # dv of the half
+                    even = torch.zeros_like(contrib[:, :, 0])
+                    odd = torch.zeros_like(even)
+                    for i in range(0, dh, 2):
+                        even = even + contrib[:, :, i]
+                        odd = odd + contrib[:, :, i + 1]
+                    dv[:, :, t, cols] = even + odd
         ds0[:, :, :, cols] = dS
     reduced = []
     for q in range(3):
@@ -214,9 +242,10 @@ def _wkv_bwd_sliced(r, k, v, w, u, dout, dsf, ckpt, p):
 
 @pytest.mark.parametrize("B,H,T,dh", [(1, 2, 37, 32), (2, 1, 16, 64), (1, 2, 1, 16)])
 def test_rwkv6_scan_bwd_chunked_slice_model(B, H, T, dh):
-    """Chunk checkpoints, the recompute per chunk, per-slice partials summed
-    in order compute what jax.vjp of the reference scan does: T ragged
-    against the chunks (37), whole chunks (16), one step (1), 1 to 4 slices."""
+    """Chunk checkpoints, the recompute per half-chunk, four threads a row,
+    per-slice partials summed in order compute what jax.vjp of the reference
+    scan does: T ragged against the chunks (37: a last chunk of 5, within
+    one half), whole chunks (16: both halves), one step (1), 1 to 4 slices."""
     p = k5b.plan(B, H, T, dh)
     assert p.slices == dh // 16 and p.chunks == -(-T // 16)
     ins, dout, dsf = _wkv_inputs(B, H, T, dh, seed=B + T + dh)

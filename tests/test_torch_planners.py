@@ -9,12 +9,14 @@ mma path, whose D splits come from the static shapes alone and cover D
 once; K5's column slices come from (B, H, dh, SMs) alone; K1's backward
 takes its tensor-core path for the model's bf16 layouts, and splits its dq
 pass over the kv range from the static shapes alone; K4's backward takes
-tensor-core paths for dx and dw in bf16 (dx on wgmma at every moe config's
-training C above 32), and K5's backward slices its columns and chunks its
-time from the shapes alone.
+wgmma for dx and dw in bf16 at every moe config's training C, and K5's
+backward slices its columns and chunks its time from the shapes alone and
+puts rwkv6-3b's training shape in one wave; the constants these planners
+share with the kernel sources agree with them.
 """
 
 import inspect
+import re
 
 import pytest
 import torch
@@ -337,9 +339,10 @@ def test_rwkv6_scan_plan_at_the_serve_shape():
 @pytest.mark.parametrize("tokens", [2 * 512, 8 * 64, 2 * 32])
 def test_moe_gmm_bwd_plan_every_config(name, tokens):
     """K4's backward at each moe config's training capacity (B 2 x S 512, a
-    smoke batch, a short one): bf16 never reaches the FMA kernels (dx on
-    wgmma at every C, dw on mma), and the model's operands are tensor maps
-    (dy from autograd is contiguous); float32 takes fma for both."""
+    smoke batch, a short one): bf16 never reaches the FMA kernels (dx and dw
+    on wgmma at every C), and the model's operands are tensor maps (x the
+    dispatch buffer's view, dy from autograd contiguous); float32 takes fma
+    for both."""
     assert list(inspect.signature(k4b.plan).parameters) == ["dtype"]
     cfg = get_arch(name)
     E = cfg.num_experts
@@ -348,18 +351,21 @@ def test_moe_gmm_bwd_plan_every_config(name, tokens):
         x, w = _moe_operands(E, C, D, F, torch.bfloat16)
         dy = torch.empty((E, C, F), dtype=torch.bfloat16, device="meta")
         assert E <= k4.WGMMA_MAX_E and k4._map_ok(w) and k4._map_ok(dy), (name, C, D, F)
-        assert k4b.plan_call(x, w, dy) == k4b.Plan("wgmma", "mma"), (name, C, D, F)
+        assert k4._map_ok(x), (name, C, D, F)
+        assert k4b.plan_call(x, w, dy) == k4b.Plan("wgmma", "wgmma"), (name, C, D, F)
         x32, w32 = _moe_operands(E, C, D, F, torch.float32)
         assert k4b.plan_call(x32, w32, dy.float()) == k4b.Plan("fma", "fma")
 
 
 def test_moe_gmm_bwd_plan_at_the_training_shape():
-    """mixtral-8x7b at B 2 x S 512: C 320, dx on wgmma for gate/up and down,
-    as at every C; the plan reads no layout: a bf16 dy the tensor map cannot
-    take is refused by the wrapper on the card, never sent down another
-    path (tests/test_torch_cuda.py::test_moe_gmm_bwd_paths)."""
+    """mixtral-8x7b at B 2 x S 512: C 320, dx and dw on wgmma for gate/up and
+    down, as at every C, and no mma path left; the plan reads no layout: a
+    bf16 dy the tensor map cannot take is refused by the wrapper on the
+    card, never sent down another path
+    (tests/test_torch_cuda.py::test_moe_gmm_bwd_paths)."""
     assert capacity(1024, 8, 2, 1.25) == 320
-    assert k4b.plan(torch.bfloat16) == k4b.Plan("wgmma", "mma")
+    assert k4b.plan(torch.bfloat16) == k4b.Plan("wgmma", "wgmma")
+    assert set(k4b.PATHS) == {"fma", "wgmma"}
     assert k4b.plan(torch.float32) == k4b.Plan("fma", "fma")
     # a dy the tensor map cannot take (experts 4 elements past a multiple of 8)
     dy = torch.zeros(2 * 64 * 128 + 4, dtype=torch.bfloat16).as_strided(
@@ -373,17 +379,67 @@ def test_moe_gmm_bwd_plan_at_the_training_shape():
 @pytest.mark.parametrize("T", [1, 15, 16, 17, 512, 1000])
 @pytest.mark.parametrize("dh", [16, 32, 64])
 def test_rwkv6_scan_bwd_plan(T, dh):
-    """K5 backward's blocks and chunks from (B, H, T, dh) alone: 16-column
-    slices covering dh, one chunk per forward checkpoint, covering T once."""
-    assert list(inspect.signature(k5b.plan).parameters) == ["B", "H", "T", "dh"]
-    p = k5b.plan(2, 40, T, dh)
-    assert p.jb * p.slices == dh and p.jb == 16
+    """K5 backward's blocks and chunks from (B, H, T, dh, SMs) alone:
+    16-column slices covering dh, four threads a state row, one chunk per
+    forward checkpoint, covering T once; the blocks an SM hold their shared
+    bytes and threads, and the waves cover every block."""
+    assert list(inspect.signature(k5b.plan).parameters) == ["B", "H", "T", "dh", "sms"]
+    p = k5b.plan(2, 40, T, dh, SMS)
+    assert p.jb * p.slices == dh and p.jb == 16 and p.threads == 4 * dh
     assert (p.chunks - 1) * k5.CHECKPOINT_EVERY < T <= p.chunks * k5.CHECKPOINT_EVERY
     assert k5.checkpoint_shape(2, 40, T, dh) == (2, 40, p.chunks, dh, dh)
+    assert p.blocks_per_sm * (p.smem_bytes + 1024) <= 233_472
+    assert p.blocks_per_sm * p.threads <= 2048
+    assert (p.waves - 1) * p.blocks_per_sm * SMS < 2 * 40 * p.slices <= \
+        p.waves * p.blocks_per_sm * SMS
 
 
 def test_rwkv6_scan_bwd_plan_at_the_training_shape():
-    """rwkv6-3b at B 2 x T 512: 40 heads of 64 in 4 slices, 320 blocks, 32
-    chunks of 16 steps (42 MB of checkpoints a layer)."""
-    assert k5b.plan(2, 40, 512, 64) == k5b.Plan(16, 4, 32)
+    """rwkv6-3b at B 2 x T 512: 40 heads of 64 in 4 slices (80 clusters of 4),
+    320 blocks of 256 threads, 32 chunks of 16 steps (42 MB of checkpoints a
+    layer); 8 held states, two buffers of a chunk's inputs and two of a
+    half-chunk's partials are 73,728 shared bytes, so three blocks fit an
+    SM: 396 slots for 320 blocks, one wave on 132 SMs (two rounds on 106 SMs
+    or fewer)."""
+    p = k5b.plan(2, 40, 512, 64, SMS)
+    assert p == k5b.Plan(16, 4, 32, 256, 73_728, 3, 1)
+    assert 3 * (73_728 + 1024) <= 233_472 < 4 * (73_728 + 1024)
     assert 2 * 40 * 32 * 64 * 64 * 4 == 41_943_040
+    assert k5b.plan(2, 40, 512, 64, 106).waves == 2
+
+
+def _csrc(name):
+    return (k4b.build.CSRC / name).read_text()
+
+
+def _constants(text):
+    return {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_rwkv6_scan_bwd_plan_matches_the_kernel_source():
+    """The planner's constants are csrc/rwkv6_scan_bwd.cu's: steps a chunk,
+    states held, columns a block and a thread, the shared bytes, and the
+    launch bound that keeps three blocks' registers on an SM."""
+    src = _csrc("rwkv6_scan_bwd.cu")
+    c = _constants(src)
+    assert c["CK"] == k5.CHECKPOINT_EVERY and c["HALF"] == k5b.HALF_CHUNK
+    assert c["JB"] == k5b.COLUMN_SLICE and c["JB"] // c["QCOLS"] == k5b.THREADS_PER_ROW
+    assert "__launch_bounds__(4 * DH, 3)" in src
+    assert k5b.smem_bytes(64) == 4 * (c["HALF"] * 64 * c["JB"]
+                                      + 2 * (3 * c["CK"] * 64 + 2 * c["CK"] * c["JB"])
+                                      + 2 * 3 * c["HALF"] * 64)
+
+
+def test_moe_gmm_bwd_matches_the_kernel_source():
+    """csrc/moe_gmm_bwd.cu numbers its paths as the wrapper does, has no
+    mma.sync dw left, stages dw's contraction in k-tiles of DW_BK rows, and
+    its ring and epilogue buffer fit the 227 KB a block may hold."""
+    src = _csrc("moe_gmm_bwd.cu")
+    paths = {m[0].lower(): int(m[1]) for m in re.findall(r"#define GBWD_PATH_(\w+) (\d+)", src)}
+    assert paths == k4b.PATHS
+    assert "gmmbwd_mma" not in src and "mma_bf16" not in src
+    c = _constants(src)
+    assert c["DW_BK"] == k4b.DW_BK
+    smem = c["DW_STAGES"] * (c["DW_BM"] + c["DW_BN"]) * c["DW_BK"] * 2 \
+        + c["DW_BM"] * c["DW_BN"] * 2 + 2 * c["DW_STAGES"] * 8 + 1024
+    assert smem == 214_064 <= 232_448
