@@ -595,8 +595,9 @@ def _moe_gmm_cases(seed: int, randn) -> list:
     """K4 at mixtral-8x7b's prefill (B=4 x 512 tokens, C=640) and decode (4
     tokens, C=8) shapes with ragged group sizes, at the prefill shapes with
     the serve's own group sizes, at arctic-480b's decode shape (8 routed rows
-    on 8 of 128 experts; bf16 only: its float32 weight alone is 17.8 GB), and
-    at the JAX package's sweep shapes; each case prints its path and the mma
+    on 8 of 128 experts; bf16 only: its float32 weight alone is 17.8 GB), at
+    mixtral's training shapes (C=320, a uniform router's 2048 rows; bf16),
+    and at the JAX package's sweep shapes; each case prints its path and the mma
     path's D splits.  Bound: only the live rows of x and the weights of
     experts with live rows are read; the whole output is written."""
     import numpy as np
@@ -614,6 +615,9 @@ def _moe_gmm_cases(seed: int, randn) -> list:
     serve_gs = np.minimum(rng.multinomial(4096, [1 / 8] * 8), 640)
     arctic_gs = np.zeros(128, dtype=np.int64)
     arctic_gs[rng.choice(128, 8, replace=False)] = 1   # 4 tokens, top-2
+    # mixtral-8x7b's training batch (B 2 x S 512, top-2: C 320), the sizes a
+    # uniform router gives, as in _moe_gmm_bwd_cases
+    train_gs = np.minimum(np.random.default_rng(seed + 22).multinomial(2048, [1 / 8] * 8), 320)
     shapes = [  # (E, C, D, F, group sizes, timed or not, f32 tolerance or None)
         (8, 640, 4096, 14336, prefill_gs, True, 1e-3),   # gate / up, prefill
         (8, 640, 14336, 4096, prefill_gs, True, 1e-3),   # down, prefill
@@ -622,6 +626,8 @@ def _moe_gmm_cases(seed: int, randn) -> list:
         (8, 8, 4096, 14336, decode_gs, True, 1e-3),      # gate / up, decode
         (8, 8, 14336, 4096, decode_gs, True, 1e-3),      # down, decode
         (128, 8, 7168, 4864, arctic_gs, True, None),     # arctic gate / up, decode
+        (8, 320, 4096, 14336, train_gs, True, None),     # gate / up, training
+        (8, 320, 14336, 4096, train_gs, True, None),     # down, training
         (2, 32, 64, 48, np.arange(2) * 13 % 33, False, 1e-4),
         (4, 64, 96, 128, np.arange(4) * 13 % 65, False, 1e-4),
     ]
@@ -712,7 +718,7 @@ def emit_case(kernel: str, case: dict) -> None:
             "device_us_clean", "kernel_device_ms", "kernel_device_ms_clean",
             "library_device_ms", "dq_splits",
             "library_fwd_bwd_ms", "library_fwd_bwd_device_ms", "device_factor", "ds_final",
-            "of_bound", "dx", "dw", "forward_ms", "forward_with_checkpoints_ms")
+            "of_bound", "dx", "dw", "schedule", "forward_ms", "forward_with_checkpoints_ms")
     print(f"[{kernel}] " + json.dumps({k: case[k] for k in keys if k in case}),
           file=sys.stderr, flush=True)
 
@@ -2449,7 +2455,11 @@ def _moe_gmm_bwd_cases(seed: int) -> list:
     sizes a uniform router gives and with empty experts, bf16 (timed: both
     gradients, then dx and dw alone, each beside torch.bmm over every expert)
     and f32; and a C <= 32 shape (one short tile of C for both gradients).
-    bf16 runs dx and dw on wgmma.  Two calls must give the same bits.
+    bf16 runs dx and dw on wgmma, dx on its stream-K schedule (each case
+    records it: blocks, units, tiles cut across blocks, workspace).  Two
+    calls must give the same bits, and so must a CUDA-graph replay of dx,
+    also after new group sizes are copied in (dx reads them on the device);
+    rows at or past group_sizes[e] must be exact zeros.
     Bound, each gradient alone by what it needs: dx the weights of experts
     with live rows and the live rows of dy read once, dx written once; dw
     the live rows of x and dy read once, dw written once; both together the
@@ -2459,6 +2469,43 @@ def _moe_gmm_bwd_cases(seed: int) -> list:
 
     from repro_torch.kernels import moe_gmm_bwd as k4b
     from repro_torch.kernels import ops, ref
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def schedule(E, C, D, F, gs_np):
+        """dx's stream-K schedule for these group sizes (the kernel finds the
+        same from group_sizes on the device)."""
+        tiles = int(sum(-(-min(int(g), C) // k4b.DX_BM) for g in gs_np)) * -(-D // k4b.DX_BN)
+        ktiles, grid = -(-F // k4b.DX_BK), k4b.dx_grid(E, C, D, F, sms)
+        units = k4b.dx_units(tiles, ktiles, grid)
+        s = k4b.dx_schedule(tiles, ktiles, grid)
+        return {"grid": grid, "tiles": tiles, "k_steps": ktiles, "full_rounds": s.rounds,
+                "tiles_cut": s.left if s.pieces > 1 else 0, "pieces": s.pieces,
+                "units": sum(map(len, units)),
+                "max_k_steps_a_block": max(sum(u.k1 - u.k0 for u in b) for b in units),
+                "workspace_bytes": k4b.workspace_bytes(grid)}
+
+    def graph_dx(x, w, gs, dy, dx, other_gs):
+        """dx replayed from a CUDA graph equals the eager dx bit for bit, and
+        after other group sizes are copied in, the eager dx of those."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.moe_gmm_bwd(x, w, gs, dy, need_dw=False)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            replayed, _ = ops.moe_gmm_bwd(x, w, gs, dy, need_dw=False)
+        g.replay()
+        torch.cuda.synchronize()
+        ok = torch.equal(replayed, dx)
+        saved = gs.clone()
+        gs.copy_(torch.as_tensor(other_gs, dtype=torch.int32))
+        g.replay()
+        ok = ok and torch.equal(replayed, ops.moe_gmm_bwd(x, w, gs, dy, need_dw=False)[0])
+        gs.copy_(saved)
+        if not ok:
+            raise AssertionError("moe_gmm_bwd: dx replayed from a graph differs from eager")
 
     rng = np.random.default_rng(seed + 22)
     g = torch.Generator(device="cuda")
@@ -2490,10 +2537,17 @@ def _moe_gmm_bwd_cases(seed: int) -> list:
             again = ops.moe_gmm_bwd(x, w, gs, dy)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{tag}: two calls differ")
+            for e, size in enumerate(gs_np.tolist()):
+                if torch.count_nonzero(got[0][e, size:]):
+                    raise AssertionError(f"{tag}: dx rows at or past {size} of expert {e}")
             p = k4b.plan_call(x, w, dy)
             case = {"shape": [E, C, D, F], "group_sizes": gs_np.tolist(),
-                    "dtype": str(dtype)[6:], "path": {"dx": p.dx, "dw": p.dw}, "splits": 1,
+                    "dtype": str(dtype)[6:], "path": {"dx": p.dx, "dw": p.dw},
                     "max_abs_err": err, "bit_identical": True}
+            if p.dx == "wgmma":
+                case["schedule"] = schedule(E, C, D, F, gs_np)
+                graph_dx(x, w, gs, dy, got[0], empty if C == 320 else small[::-1].copy())
+                case["graph_bit_identical"] = True
             del want, again
             if is_timed and dtype == torch.bfloat16:
                 es = x.element_size()

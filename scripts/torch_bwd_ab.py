@@ -14,7 +14,9 @@ kernel after the writing flush):
     a uniform router's 2048 rows): both gradients, dx alone, dw alone, and
     ``torch.bmm`` for dx and for dw over all 8 experts;
   - K5's backward at rwkv6-3b's training shape (2, 40, 512, 64), f32;
-  - K4's forward at chip_smoke's prefill shapes (E 8, C 640).
+  - K4's forward at chip_smoke's prefill shapes (E 8, C 640), at mixtral's
+    training shapes (C 320, the uniform router's sizes above) and at its
+    decode shapes (C 8, sizes 2/0/3/1/0/0/2/0), each beside ``torch.bmm``.
 ``--only`` keeps the cases whose name holds one of the strings.  Every case
 of a port kernel is first checked against its plain version (the error is
 recorded, not judged).  One JSON line per turn and case goes to stdout and
@@ -92,16 +94,23 @@ def _cases(seed: int):
     rng = np.random.default_rng(seed)
     prefill = rng.integers(0, 641, 8)
     prefill[:2] = (0, 640)
-    pgs = torch.tensor(prefill, dtype=torch.int32, device="cuda")
-    for part, (D, F) in (("gate_up", (4096, 14336)), ("down", (14336, 4096))):
-        x = torch.randn(8, 640, D, generator=g, device="cuda").to(torch.bfloat16)
-        w = (torch.randn(8, D, F, generator=g, device="cuda") * D ** -0.5).to(torch.bfloat16)
+    for what, C, sizes in (("prefill", 640, prefill), ("train", 320, uniform),
+                           ("decode", 8, np.array([2, 0, 3, 1, 0, 0, 2, 0]))):
+        fgs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        flive = torch.arange(C, device="cuda")[None, :, None] < fgs[:, None, None]
+        for part, (D, F) in (("gate_up", (4096, 14336)), ("down", (14336, 4096))):
+            x = torch.randn(8, C, D, generator=g, device="cuda").to(torch.bfloat16)
+            w = (torch.randn(8, D, F, generator=g, device="cuda") * D ** -0.5).to(torch.bfloat16)
+            xz = torch.where(flive, x, 0)
 
-        def check_fwd(x=x, w=w):
-            got, want = ops.moe_gmm(x, w, pgs), ref.moe_gmm_ref(x, w, pgs)
-            return float((got.float() - want.float()).abs().max())
+            def check_fwd(x=x, w=w, fgs=fgs):
+                got, want = ops.moe_gmm(x, w, fgs), ref.moe_gmm_ref(x, w, fgs)
+                return float((got.float() - want.float()).abs().max())
 
-        yield (f"moe_gmm prefill {part}", lambda x=x, w=w: ops.moe_gmm(x, w, pgs), check_fwd)
+            yield (f"moe_gmm {what} {part}", lambda x=x, w=w, fgs=fgs: ops.moe_gmm(x, w, fgs),
+                   check_fwd)
+            yield f"torch.bmm {what} {part}", lambda xz=xz, w=w: torch.bmm(xz, w), None
+            del x, w, xz
 
 
 def worker(tree: str, turn: int, seed: int, only, out) -> None:

@@ -282,14 +282,15 @@ gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // -------------------------------------------------------------- wgmma path
 
 // the body is gmm_wgmma.cuh's, shared with the backward's dx: here b is w
-// (E, D, F), MN-major
+// (E, D, F), MN-major, on the whole-tile schedule
 __global__ void __launch_bounds__(W_THREADS, 1)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
                  const __grid_constant__ CUtensorMap tmap_w,
                  const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ out, int E,
                  int C, int D, int F) {
   extern __shared__ __align__(1024) uint8_t w_smem_raw[];
-  gmm_wgmma_body<false>(&tmap_x, &tmap_w, group_sizes, out, E, C, D, F, w_smem_raw);
+  gmm_wgmma_body<false, false>(&tmap_x, &tmap_w, nullptr, group_sizes, out, nullptr, nullptr, E,
+                               C, D, F, w_smem_raw);
 }
 
 // w (E, D, F) as a 3-D tensor map, innermost axis first, in boxes 64 wide

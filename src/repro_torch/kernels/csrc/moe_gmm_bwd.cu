@@ -26,7 +26,19 @@
 //             contraction, is w's contiguous axis, so one TMA box of 256 w
 //             rows x 64 deep a stage feeds wgmma.m64n256k16 with no transpose
 //             flag and no copy.  At C below one 128-row tile TMA zero-fills
-//             the rows past C and the epilogue writes only rows below C.
+//             the rows past C and the store clips them.  dx takes the body's
+//             stream-K schedule: at mixtral's gate/up 320 live tiles of 224
+//             k-steps are 2.42 waves on 132 SMs, so whole tiles would leave
+//             76 SMs idle for the third wave's length; here the two full
+//             waves run whole and each of the 56 tiles left is cut at the
+//             same k-steps in two, 560 k-steps a block in all instead of
+//             672 (down: 576 -> 544), their f32 pieces summed by each tile's
+//             first block in block order through a workspace the wrapper
+//             allocates (a slot and a flag a block, the flags cleared at the
+//             launch).  Its epilogue stores the bf16 tile by TMA from a
+//             swizzled buffer, half a tile at a time, while the next tile's
+//             products run; a 4-stage ring beside it (at most SK_MAX_E
+//             experts in the shared tile list).
 //   dw wgmma  (bf16): gmmbwd_dw_wgmma below.  dw is bound by its write (at
 //             mixtral's gate/up 939.5 MB against a contraction of only the
 //             ~256 live rows), so the design keeps that write streaming:
@@ -58,6 +70,8 @@
 //   fma       (f32): true float32 FMAs on 64 x 64 tiles, for the 2e-4 parity
 //             of the f32 smoke models.
 // Left for later work: fusing silu's backward into the gate/up dx.
+#include <climits>
+
 #include "common.cuh"
 #include "gmm_wgmma.cuh"
 #include "hopper.cuh"
@@ -201,19 +215,12 @@ gmmbwd_dw_wgmma(const __grid_constant__ CUtensorMap tmap_x,
     if (wtid == 0) bulk_wait_group_read<0>();
     named_barrier(1 + wg, 128);
     // accumulator fragment: row r = (warp%4)*16 + lane/4 (+8) of the warpgroup's
-    // 64, columns 8c + 2*(lane%4) (+1); column group c lies in box c/8 as its
-    // 16-byte chunk c%8 of row r, at chunk (c%8) ^ (r%8) under the 128-byte
-    // swizzle (rows r and r + 8 share the pattern)
+    // 64, columns 8c + 2*(lane%4) (+1)
     const int r = ((tid >> 5) & 3) * 16 + (lane >> 2);
 #pragma unroll
-    for (int c = 0; c < DW_BN / 8; ++c) {
-      uint8_t* p = ob + (c >> 3) * DW_BOX + r * 128 + (((c & 7) ^ (r & 7)) << 4) + (lane & 3) * 4;
-      *reinterpret_cast<__nv_bfloat162*>(p) = keep
-          ? __floats2bfloat162_rn(acc[4 * c], acc[4 * c + 1]) : __floats2bfloat162_rn(0.f, 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(p + 8 * 128) = keep
-          ? __floats2bfloat162_rn(acc[4 * c + 2], acc[4 * c + 3])
-          : __floats2bfloat162_rn(0.f, 0.f);
-    }
+    for (int c = 0; c < DW_BN / 8; ++c)
+      stage_bf16(ob, c, r, lane, acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3], keep,
+                 keep);
     fence_proxy_async();  // the buffer's writes visible to the TMA store
     named_barrier(1 + wg, 128);
     if (wtid == 0) {  // rows past D and columns past F are clipped by the store
@@ -292,12 +299,19 @@ gmmbwd_fma(OperandF a, OperandF b, const int* __restrict__ group_sizes,
   }
 }
 
+// dx (E, C, D) = dy w^T on the body's stream-K schedule: tmap_dy is dy as
+// (F, C, E) in 64 x 128 boxes, tmap_w is w as w^T, (F, D, E) in 64 x 256
+// boxes, tmap_dx is dx as (D, C, E) in 64 x 64 boxes; `partials` and `flags`
+// the workspace of gridDim.x slots.
 __global__ void __launch_bounds__(W_THREADS, 1)
 gmmbwd_dx_wgmma(const __grid_constant__ CUtensorMap tmap_dy,
-                const __grid_constant__ CUtensorMap tmap_w, const int* __restrict__ group_sizes,
-                __nv_bfloat16* __restrict__ dx, int E, int C, int D, int F) {
+                const __grid_constant__ CUtensorMap tmap_w,
+                const __grid_constant__ CUtensorMap tmap_dx, const int* __restrict__ group_sizes,
+                __nv_bfloat16* __restrict__ dx, float* __restrict__ partials,
+                unsigned* __restrict__ flags, int E, int C, int D, int F) {
   extern __shared__ __align__(1024) uint8_t w_smem_raw[];
-  gmm_wgmma_body<true>(&tmap_dy, &tmap_w, group_sizes, dx, E, C, F, D, w_smem_raw);
+  gmm_wgmma_body<true, true>(&tmap_dy, &tmap_w, &tmap_dx, group_sizes, dx, partials, flags, E, C,
+                             F, D, w_smem_raw);
 }
 
 template <typename Kernel>
@@ -315,25 +329,35 @@ int persistent_grid(int sms, long long tiles) {
   return static_cast<int>(tiles < sms ? (tiles > 0 ? tiles : 1) : sms);
 }
 
-int launch_dx_wgmma(const void* dy, const void* w, const int* gs, void* dx, int E, int C, int D,
-                    int F, long long sde, long long sdc, long long swe, long long swd, int sms,
-                    cudaStream_t stream) {
+// grid: the wrapper's (moe_gmm_bwd.py:dx_grid); workspace: grid slots of
+// SK_PART_FLOATS floats, then grid flags
+int launch_dx_wgmma(const void* dy, const void* w, const int* gs, void* dx, void* workspace,
+                    int E, int C, int D, int F, long long sde, long long sdc, long long swe,
+                    long long swd, int grid, cudaStream_t stream) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  if (E > W_MAX_E || sms < 1 || D % 8 || F % 8 || sde % 8 || sdc % 8 || swe % 8 || swd % 8 ||
-      reinterpret_cast<uintptr_t>(dy) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+  // the schedule's int arithmetic: a tile's k-steps x G below 2^31
+  if (E > SK_MAX_E || grid < 1 || (long long)((F + W_BK - 1) / W_BK) * grid > INT_MAX ||
+      workspace == nullptr || D % 8 || F % 8 || sde % 8 || sdc % 8 || swe % 8 || swd % 8 ||
+      reinterpret_cast<uintptr_t>(dy) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(dx) % 16 || reinterpret_cast<uintptr_t>(workspace) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tdy, tw;
-  // dy (E, C, F) K-major in 64 x 128 boxes; w (E, D, F) as w^T, K-major, in 64 x 256 boxes
+  CUtensorMap tdy, tw, tdx;
+  // dy (E, C, F) K-major in 64 x 128 boxes; w (E, D, F) as w^T, K-major, in
+  // 64 x 256 boxes; dx (E, C, D) contiguous in 64 x 64 boxes
   if (encode_bf16_3d(encode, &tdy, dy, F, C, E, sdc, sde, W_BK, W_BM) != CUDA_SUCCESS ||
-      encode_bf16_3d(encode, &tw, w, F, D, E, swd, swe, W_BK, W_BN) != CUDA_SUCCESS)
+      encode_bf16_3d(encode, &tw, w, F, D, E, swd, swe, W_BK, W_BN) != CUDA_SUCCESS ||
+      encode_bf16_3d(encode, &tdx, dx, D, C, E, D, (long long)C * D, 64, 64) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
-  if (int err = set_smem(gmmbwd_dx_wgmma, W_SMEM, configured)) return err;
-  const int grid = persistent_grid(
-      sms, (long long)E * ((C + W_BM - 1) / W_BM) * ((D + W_BN - 1) / W_BN));
-  gmmbwd_dx_wgmma<<<grid, W_THREADS, W_SMEM, stream>>>(
-      tdy, tw, gs, static_cast<__nv_bfloat16*>(dx), E, C, D, F);
+  if (int err = set_smem(gmmbwd_dx_wgmma, SK_SMEM, configured)) return err;
+  float* partials = static_cast<float*>(workspace);
+  unsigned* flags = reinterpret_cast<unsigned*>(partials + (long long)grid * SK_PART_FLOATS);
+  // the flags start at zero in every call (and every replay of a captured one)
+  if (cudaError_t e = cudaMemsetAsync(flags, 0, grid * sizeof(unsigned), stream))
+    return static_cast<int>(e);
+  gmmbwd_dx_wgmma<<<grid, W_THREADS, SK_SMEM, stream>>>(
+      tdy, tw, tdx, gs, static_cast<__nv_bfloat16*>(dx), partials, flags, E, C, D, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -378,14 +402,16 @@ int launch_fma(OperandF a, OperandF b, const int* gs, void* out, int E, int C, i
 // swd, 1); dy: (E, C, F) with strides (sde, sdc, 1); group_sizes: (E,) int32
 // on the device, or null for all C rows; dx (E, C, D) and dw (E, D, F)
 // contiguous, either null when not asked for.  dx_path, dw_path: fma (f32)
-// or wgmma (bf16), each on a persistent grid of at most `sms` blocks.  bf16
-// needs D, F and every row and expert stride a multiple of 8 and 16-byte
-// aligned x, w, dy (the wrapper checks).
+// or wgmma (bf16); dw's wgmma on a persistent grid of at most `sms` blocks,
+// dx's on `dx_grid` blocks with `workspace` (dx_grid slots of
+// SK_PART_FLOATS floats and dx_grid flags; null on fma).  bf16 needs D, F
+// and every row and expert stride a multiple of 8 and 16-byte aligned x,
+// w, dy (the wrapper checks).
 extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* group_sizes,
-                           const void* dy, void* dx, void* dw, int dtype, int E, int C, int D,
-                           int F, long long sxe, long long sxc, long long swe, long long swd,
-                           long long sde, long long sdc, int dx_path, int dw_path, int sms,
-                           void* stream) {
+                           const void* dy, void* dx, void* dw, void* workspace, int dtype, int E,
+                           int C, int D, int F, long long sxe, long long sxc, long long swe,
+                           long long swd, long long sde, long long sdc, int dx_path, int dw_path,
+                           int sms, int dx_grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gs = static_cast<const int*>(group_sizes);
   const bool bf16 = dtype == REPRO_BF16;
@@ -393,7 +419,7 @@ extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* group_sizes
   if (dx != nullptr) {
     int err;
     if (dx_path == GBWD_PATH_WGMMA && bf16) {
-      err = launch_dx_wgmma(dy, w, gs, dx, E, C, D, F, sde, sdc, swe, swd, sms, s);
+      err = launch_dx_wgmma(dy, w, gs, dx, workspace, E, C, D, F, sde, sdc, swe, swd, dx_grid, s);
     } else if (dx_path == GBWD_PATH_FMA && !bf16) {
       err = launch_fma<true>({static_cast<const float*>(dy), sde, sdc},
                              {static_cast<const float*>(w), swe, swd}, gs, dx, E, C, C, D, F, s);

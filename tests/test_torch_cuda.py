@@ -969,6 +969,14 @@ def test_train_step_remat_and_microbatches_card_vs_cpu(gen, arch, kwargs):
     (8, 320, 256, 512, [0, 1, 15, 63, 64, 65, 319, 320]),   # every k-tile edge of dw
     (8, 320, 200, 264, [320, 0, 65, 64, 1, 0, 319, 63]),    # D, F off dw's 128 x 256 tile
     (3, 24, 136, 72, [24, 0, 13]),                # C <= 32: one short k-tile of dw
+    # dx's stream-K: 40 live tiles of 64 k-steps, fewer than the SMs, each
+    # cut across about three blocks
+    (8, 320, 512, 4096, [266, 239, 249, 246, 286, 264, 239, 259]),
+    # 133 live tiles, one more than an H100's SMs: one full round, then the
+    # last tile's 64 k-steps cut across four blocks
+    (8, 320, 1792, 4096, [320, 257, 300, 256, 129, 200, 140, 250]),
+    (8, 320, 512, 4000, [266, 0, 249, 1, 320, 264, 129, 128]),   # F no multiple of 64
+    (8, 320, 512, 4096, [0] * 8),                 # every expert dead
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_gmm_bwd_kernel(gen, E, C, D, F, sizes, dtype):
@@ -977,7 +985,9 @@ def test_moe_gmm_bwd_kernel(gen, E, C, D, F, sizes, dtype):
     expert with no live row gets a zero dw; two calls give the same bits;
     each gradient alone when only it is asked for.  bf16 dw's contraction
     ends at each expert's live rows: live counts at and around its 64-row
-    k-tile edges, all of C and none."""
+    k-tile edges, all of C and none.  bf16 dx's stream-K schedule: tiles
+    fewer than the SMs, one more than the SMs, a ragged last k-step, no live
+    tile."""
     x = torch.randn(E, C, D, generator=gen, device="cuda").to(dtype)
     w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(dtype)
     dy = torch.randn(E, C, F, generator=gen, device="cuda").to(dtype)
@@ -994,6 +1004,8 @@ def test_moe_gmm_bwd_kernel(gen, E, C, D, F, sizes, dtype):
         assert torch.count_nonzero(dx[e, size:]) == 0
         if size == 0:
             assert torch.count_nonzero(dw[e]) == 0
+    if not any(sizes):
+        assert torch.count_nonzero(dx) == 0 and torch.count_nonzero(dw) == 0
     again = ops.moe_gmm_bwd(x, w, gs, dy)
     assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
     only_dx = ops.moe_gmm_bwd(x, w, gs, dy, need_dw=False)
@@ -1041,6 +1053,39 @@ def test_moe_gmm_bwd_paths(gen):
         torch.cuda.synchronize()
         for a, b in zip((dx, dw), ref.moe_gmm_bwd_ref(x, w, gs, dy)):
             torch.testing.assert_close(a, b, **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("D,F,sizes", [
+    (512, 4096, [266, 239, 249, 246, 286, 264, 239, 259]),   # tiles cut across blocks
+    (1792, 4096, [320, 257, 300, 256, 129, 200, 140, 250]),  # a full round, then one tile
+])
+def test_moe_gmm_bwd_dx_graph_replay_is_bit_equal(gen, D, F, sizes):
+    """bf16 dx replayed from a CUDA graph gives the eager call's bits (its
+    stream-K pieces are summed in block order, its flags cleared in the
+    call), also after new group sizes are copied in: the graph holds no
+    schedule read on the host."""
+    E, C = 8, 320
+    x = torch.randn(E, C, D, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5).to(torch.bfloat16)
+    dy = torch.randn(E, C, F, generator=gen, device="cuda").to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    eager = ops.moe_gmm_bwd(x, w, gs, dy, need_dw=False)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.moe_gmm_bwd(x, w, gs, dy, need_dw=False)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dx, _ = ops.moe_gmm_bwd(x, w, gs, dy, need_dw=False)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(dx, eager)
+    gs.copy_(torch.tensor(sizes[::-1], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(dx, ops.moe_gmm_bwd(x, w, gs, dy, need_dw=False)[0])
 
 
 @pytest.mark.parametrize("B,H,T,dh", [(1, 2, 1, 16), (2, 3, 37, 32), (2, 4, 70, 64),

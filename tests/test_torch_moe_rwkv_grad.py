@@ -2,8 +2,10 @@
 
 The plain backward versions (``kernels/ref.py``: ``moe_gmm_bwd_ref``,
 ``rwkv6_scan_bwd_ref``) and plain PyTorch models of the CUDA kernels'
-decompositions (K4's dw over a ragged, masked last k-tile; K5's chunk
-checkpoints, per-chunk recompute and per-slice partials summed in order) are
+decompositions (K4's dw over a ragged, masked last k-tile; K4's dx on its
+stream-K schedule, its pieces summed by each tile's first block in block
+order; K5's chunk checkpoints, per-chunk recompute and per-slice partials
+summed in order) are
 held against ``jax.vjp`` of the JAX package's oracles
 (``repro.kernels.ref.moe_gmm_ref``, ``rwkv6_scan_ref``), on the same numpy
 inputs, in float32 at 2e-4.  The kernels themselves are held against the
@@ -102,6 +104,78 @@ def test_moe_gmm_bwd_dw_ragged_k_tile_model(sizes):
     x, w, gs, dy = _moe_inputs(4, 140, 24, 16, sizes, seed=7)
     got = _dw_tiled(torch.from_numpy(x), torch.from_numpy(dy), gs, k4b.DW_BK)
     _close(got, _moe_vjp(x, w, gs, dy)[1])
+
+
+def _dx_stream_k(dy, w, gs, grid, bm=k4b.DX_BM, bn=k4b.DX_BN, bk=k4b.DX_BK):
+    """csrc/gmm_wgmma.cuh's dx (dy w^T) on its stream-K schedule in plain
+    PyTorch, with tiles of bm x bn and k-steps of bk: the live tiles (expert,
+    column slab, row tile fastest) from group_sizes as each block finds
+    them, each block's units from ``dx_units``, every unit's f32 product over
+    its k-steps; a part's sums go to its block's slot, a head adds the slots
+    of the blocks it lists, in order; rows at or past group_sizes[e] zero."""
+    E, C, F = dy.shape
+    D = w.shape[1]
+    n_slabs, ktiles = -(-D // bn), -(-F // bk)
+    mt = [-(-min(max(int(g), 0), C) // bm) for g in gs]
+    first = np.concatenate([[0], np.cumsum(mt)])
+
+    def tile_at(t):
+        e = int(np.searchsorted(first * n_slabs, t, side="right")) - 1
+        local = t - first[e] * n_slabs
+        return e, (local % mt[e]) * bm, (local // mt[e]) * bn
+
+    def product(u):
+        e, m0, n0 = tile_at(u.tile)
+        ks = slice(u.k0 * bk, min(u.k1 * bk, F))
+        return e, m0, n0, dy[e, m0:m0 + bm, ks] @ w[e, n0:n0 + bn, ks].T
+
+    units = k4b.dx_units(int(first[-1]) * n_slabs, ktiles, grid)
+    slots = {b: product(u)[3] for b, us in enumerate(units) for u in us if u.kind == "part"}
+    out = torch.zeros(E, C, D)
+    for us in units:
+        for u in us:
+            if u.kind == "part":
+                continue
+            e, m0, n0, acc = product(u)
+            for b in u.parts:
+                acc = acc + slots[b]
+            rows = torch.arange(m0, m0 + acc.shape[0])[:, None]
+            out[e, m0:m0 + bm, n0:n0 + bn] = torch.where(rows < int(gs[e]), acc, 0.0)
+    return out
+
+
+@pytest.mark.parametrize("sizes,grid", [
+    ([33, 30, 31, 31, 36, 33, 30, 32], 32),   # mixtral's uniform sizes at C 40: 2 rounds,
+                                              # then 12 tiles in 2 pieces
+    ([0, 40, 17, 1, 40, 0, 25, 39], 13),      # empty experts, one row, a full one: 4
+                                              # rounds, then 4 tiles in 3 pieces
+    ([0] * 8, 13),                            # every expert dead: zeros
+    ([0, 0, 1, 0, 0, 0, 0, 0], 13),           # one live row: 4 tiles in 3 pieces
+    ([0, 40, 17, 1, 40, 0, 25, 39], 132),     # 56 tiles, fewer than blocks: 2 pieces
+])
+def test_moe_gmm_bwd_dx_stream_k_model(sizes, grid):
+    """dx's partition and fixed-order fixup, at tiles of 16 x 16 and k-steps
+    of 4 (56 a tile), against jax.vjp of the expert einsum: every live
+    (tile, k-step) once, the pieces of a tile cut across blocks summed in
+    block order."""
+    tiles = sum(-(-n // 16) for n in sizes) * 4
+    units = k4b.dx_units(tiles, 56, grid)
+    assert any(u.kind == "head" for us in units for u in us) == any(sizes)
+    x, w, gs, dy = _moe_inputs(8, 40, 64, 224, sizes, seed=sum(sizes) + grid)
+    got = _dx_stream_k(torch.from_numpy(dy), torch.from_numpy(w), gs, grid, 16, 16, 4)
+    _close(got, _moe_vjp(x, w, gs, dy)[0])
+    for e, n in enumerate(sizes):
+        assert not got[e, n:].abs().sum()
+
+
+def test_moe_gmm_bwd_dx_stream_k_model_at_the_kernels_tile():
+    """The same at the kernel's 128 x 256 tiles and 64-deep k-steps: 3 x 3
+    live tiles of 32 k-steps on 4 blocks (two full rounds of 4, then the
+    last tile in two pieces of 16), rows past C and a ragged last k-step."""
+    x, w, gs, dy = _moe_inputs(2, 130, 640, 2040, [130, 100], seed=11)
+    assert k4b.dx_schedule(9, 32, 4) == k4b.Schedule(2, 1, 2)
+    got = _dx_stream_k(torch.from_numpy(dy), torch.from_numpy(w), gs, 4)
+    _close(got, _moe_vjp(x, w, gs, dy)[0])
 
 
 def _wkv_inputs(B, H, T, dh, seed):

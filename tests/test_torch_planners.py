@@ -11,7 +11,9 @@ takes its tensor-core path for the model's bf16 layouts, and splits its dq
 pass over the kv range from the static shapes alone; K4's backward takes
 wgmma for dx and dw in bf16 at every moe config's training C, and K5's
 backward slices its columns and chunks its time from the shapes alone and
-puts rwkv6-3b's training shape in one wave; the constants these planners
+puts rwkv6-3b's training shape in one wave; K4's bf16 dx cuts the live
+(tile, k-step) space into equal shares for its blocks, each covered once,
+with a workspace sized from the grid alone; the constants these planners
 share with the kernel sources agree with them.
 """
 
@@ -350,7 +352,7 @@ def test_moe_gmm_bwd_plan_every_config(name, tokens):
     for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):   # gate/up, down
         x, w = _moe_operands(E, C, D, F, torch.bfloat16)
         dy = torch.empty((E, C, F), dtype=torch.bfloat16, device="meta")
-        assert E <= k4.WGMMA_MAX_E and k4._map_ok(w) and k4._map_ok(dy), (name, C, D, F)
+        assert E <= k4b.DX_MAX_E and k4._map_ok(w) and k4._map_ok(dy), (name, C, D, F)
         assert k4._map_ok(x), (name, C, D, F)
         assert k4b.plan_call(x, w, dy) == k4b.Plan("wgmma", "wgmma"), (name, C, D, F)
         x32, w32 = _moe_operands(E, C, D, F, torch.float32)
@@ -408,6 +410,91 @@ def test_rwkv6_scan_bwd_plan_at_the_training_shape():
     assert k5b.plan(2, 40, 512, 64, 106).waves == 2
 
 
+def _check_dx_units(tiles, ktiles, grid):
+    """dx_units covers every live (tile, k-step) once; each block runs its
+    whole tiles, then at most one piece of a tile left over; a part does not
+    start its tile and writes the block's one slot; a head starts its tile
+    and lists the later blocks holding the rest of it, whose parts together
+    end the tile; every tile left over is cut at the same k-steps.  Returns
+    the k-steps of each block."""
+    units = k4b.dx_units(tiles, ktiles, grid)
+    s = k4b.dx_schedule(tiles, ktiles, grid)
+    assert len(units) == grid
+    seen, cuts = {}, {}
+    for b, us in enumerate(units):
+        assert [u.tile for u in us[:s.rounds]] == [r * grid + b for r in range(s.rounds)]
+        assert all(u.kind == "whole" for u in us[:s.rounds]) and len(us) <= s.rounds + 1
+        for u in us:
+            assert 0 <= u.k0 < u.k1 <= ktiles and 0 <= u.tile < tiles
+            assert (u.kind == "part") == (u.k0 > 0)
+            assert (u.kind == "head") == (u.k0 == 0 and u.k1 < ktiles)
+            for k in range(u.k0, u.k1):
+                seen[u.tile, k] = seen.get((u.tile, k), 0) + 1
+            if u.tile >= s.rounds * grid:
+                cuts.setdefault(u.tile, []).append((u.k0, u.k1))
+            if u.kind == "head":
+                assert u.parts and list(u.parts) == list(range(b + 1, b + 1 + len(u.parts)))
+                pieces = [(u.k0, u.k1)] + [next((v.k0, v.k1) for v in units[p]
+                                                if v.tile == u.tile) for p in u.parts]
+                assert [k1 for _, k1 in pieces[:-1]] == [k0 for k0, _ in pieces[1:]]
+                assert pieces[-1][1] == ktiles
+    assert len(seen) == tiles * ktiles and set(seen.values()) <= {1}
+    assert len({tuple(c) for c in cuts.values()}) <= 1
+    return [sum(u.k1 - u.k0 for u in us) for us in units]
+
+
+@pytest.mark.parametrize("tiles,ktiles,grid", [
+    (0, 224, 132), (1, 224, 132), (5, 3, 132), (40, 64, 132), (132, 64, 132),
+    (133, 64, 132), (264, 224, 132), (320, 224, 132), (1120, 64, 132), (76, 56, 13),
+    (9, 32, 5), (19, 63, 7)])
+def test_moe_gmm_bwd_dx_units_cover_the_work_once(tiles, ktiles, grid):
+    """The stream-K partition of dx for live tile counts of none, one, fewer
+    than the blocks, a multiple of them, one more, and mixtral's: the tiles
+    left after the full rounds in grid // left pieces (none below
+    SK_MIN_STEPS k-steps), so no block runs more than its full rounds and
+    the longest piece."""
+    steps = _check_dx_units(tiles, ktiles, grid)
+    rounds, rem = divmod(tiles, grid)
+    pieces = max(1, min(grid // rem, ktiles // k4b.SK_MIN_STEPS)) if rem else 1
+    assert k4b.dx_schedule(tiles, ktiles, grid)[:2] == (rounds, rem)
+    assert max(steps) == rounds * ktiles + (-(-ktiles // pieces) if rem else 0)
+
+
+@pytest.mark.parametrize("part,D,F", [("gate_up", 4096, 14336), ("down", 14336, 4096)])
+def test_moe_gmm_bwd_dx_schedule_at_the_training_shape(part, D, F):
+    """mixtral-8x7b's training dx on 132 SMs (C 320, a uniform router's 2048
+    rows: 20 live row tiles): gate/up 320 tiles of 224 k-steps, two full
+    rounds, then each of the 56 tiles left in two pieces of 112 on 112
+    blocks: 560 k-steps a block at most (whole tiles: 672; cutting the
+    12,544 k-steps left in 132 equal ranges would give ceil(71,680 / 132)
+    = 544, but puts sibling tiles at different k-steps and measured slower,
+    PERF.md); down 1120 tiles of 64, eight rounds, then 64 tiles in two
+    pieces of 32 on 128 blocks: 544 = ceil(71,680 / 132) (whole tiles:
+    576).  One partial tile a block at most, one slot each: the workspace
+    is 132 slots of 128 KB and flags, within the 34 MB of two a block."""
+    sizes = [266, 239, 249, 246, 286, 264, 239, 259]
+    assert sum(-(-s // k4b.DX_BM) for s in sizes) == 20
+    tiles, ktiles = 20 * -(-D // k4b.DX_BN), -(-F // k4b.DX_BK)
+    assert tiles * ktiles == 71_680
+    grid = k4b.dx_grid(8, 320, D, F, SMS)
+    assert grid == SMS
+    steps = _check_dx_units(tiles, ktiles, grid)
+    assert max(steps) == {"gate_up": 560, "down": 544}[part]
+    assert -(-tiles // SMS) * ktiles == {"gate_up": 672, "down": 576}[part]
+    s = k4b.dx_schedule(tiles, ktiles, grid)
+    assert s == {"gate_up": (2, 56, 2), "down": (8, 64, 2)}[part]
+    assert k4b.workspace_bytes(grid) == 132 * (128 * 256 * 4 + 4) <= 2 * 132 * 128 * 256 * 4
+
+
+@pytest.mark.parametrize("E,C,D,F,want", [
+    (8, 320, 4096, 14336, 132), (8, 24, 128, 64, 8), (2, 32, 64, 48, 2), (1, 130, 256, 128, 4)])
+def test_moe_gmm_bwd_dx_grid(E, C, D, F, want):
+    """One block an SM, or one a k-step of every tile when fewer; from the
+    static shapes alone."""
+    assert list(inspect.signature(k4b.dx_grid).parameters) == ["E", "C", "D", "F", "sms"]
+    assert k4b.dx_grid(E, C, D, F, SMS) == want
+
+
 def _csrc(name):
     return (k4b.build.CSRC / name).read_text()
 
@@ -428,6 +515,40 @@ def test_rwkv6_scan_bwd_plan_matches_the_kernel_source():
     assert k5b.smem_bytes(64) == 4 * (c["HALF"] * 64 * c["JB"]
                                       + 2 * (3 * c["CK"] * 64 + 2 * c["CK"] * c["JB"])
                                       + 2 * 3 * c["HALF"] * 64)
+
+
+def test_moe_gmm_bwd_dx_matches_the_kernel_source():
+    """gmm_wgmma.cuh's dx constants are the wrapper's: tile, k-step, the
+    shortest stream-K piece, a slot's size and the experts of its tile
+    list; dx's 4-stage ring plus its 32 KB epilogue buffer (half a tile),
+    barriers and expert list fit the 232,448 bytes a block may hold (a
+    whole tile's buffer would not); the forward keeps its 4-stage ring,
+    1024-expert list and whole-tile schedule; the fixup adds no atomics."""
+    src = _csrc("gmm_wgmma.cuh")
+    c = _constants(src)
+    assert (c["W_BM"], c["W_BN"], c["W_BK"]) == (k4b.DX_BM, k4b.DX_BN, k4b.DX_BK)
+    assert c["SK_MIN_STEPS"] == k4b.SK_MIN_STEPS and c["SK_MAX_E"] == k4b.DX_MAX_E
+    assert "SK_PART_FLOATS = W_BM * W_BN;" in src and k4b.SK_PART_BYTES == 128 * 256 * 4
+    assert "SK_OUT_BYTES = W_BM * W_BN;" in src
+    stage = (c["W_BM"] + c["W_BN"]) * c["W_BK"] * 2
+    tile = c["W_BM"] * c["W_BN"] * 2
+
+    def smem(stages, buffer, experts):
+        return stages * stage + buffer + 2 * stages * 8 + (experts + 1) * 4 + 1024
+
+    assert ("SK_SMEM = SK_STAGES * (W_X_BYTES + W_W_BYTES) + SK_OUT_BYTES +\n"
+            "                        2 * SK_STAGES * 8 + (SK_MAX_E + 1) * 4 + 1024;") in src
+    assert c["SK_STAGES"] == 4
+    assert smem(4, tile // 2, c["SK_MAX_E"]) == 231_492 <= 232_448 < smem(4, tile, c["SK_MAX_E"])
+    assert smem(4, tile // 2, c["W_MAX_E"]) > 232_448
+    assert c["W_STAGES"] == 4 and smem(c["W_STAGES"], 0, c["W_MAX_E"]) == 201_796
+    assert c["W_MAX_E"] == k4.WGMMA_MAX_E
+    assert "gmm_wgmma_body<false, false>" in _csrc("moe_gmm.cu")
+    assert "gmm_wgmma_body<true, true>" in _csrc("moe_gmm_bwd.cu")
+    assert "E > SK_MAX_E" in _csrc("moe_gmm_bwd.cu")
+    for text in (src, _csrc("moe_gmm_bwd.cu")):
+        code = re.sub(r"//[^\n]*", "", text)
+        assert not re.search(r"\batomic\w*\s*\(|\batom\.|\bred\.", code)
 
 
 def test_moe_gmm_bwd_matches_the_kernel_source():
