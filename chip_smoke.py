@@ -117,6 +117,19 @@ Phases, each printed as one JSON line:
                 examples/train_small.py's flow (a ~100M qwen3, 200 steps, the
                 held-out loss, a checkpoint loaded and served through SI2);
                 python -m repro_torch.launch.train at smoke size
+  dryrun        first, in a process that holds nothing else yet: full-width
+                minitron-4b on make_host_mesh() (1x1, this card): the
+                dry-run's predicted peak bytes of a prefill (B 4 x 512), a
+                decode step (B 4, a 1024-entry cache) and a train step (B 2
+                x 512, bf16 optimizer state, remat) beside
+                torch.cuda.max_memory_allocated() of the same step run with
+                its kernels, the ratio within DRYRUN_RATIO (dryrun_card
+                lines; the trace launches nothing); last, after the train
+                phase, the dry-run's sweep on the 16x16 and 2x16x16 meshes
+                of fake ranks for minitron-4b, mixtral-8x7b, rwkv6-3b,
+                zamba2-2.7b and whisper-small, every applicable shape (one
+                dryrun line each: peak GB a device, fits_80gb, flops,
+                collective bytes by kind; any failure fails the phase)
 Then the kernel summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Without a CUDA
 device it exits 1 and prints no result.
@@ -1292,6 +1305,7 @@ def _engine_graphs(engine) -> list:
 
 
 def _graph_replays(engine) -> dict:
+    # simlint: allow(id-key) -- this process's graphs, keyed within one run
     return {id(g): g.replays for g in _engine_graphs(engine)}
 
 
@@ -1299,7 +1313,7 @@ def _replayed_since(engine, replays0: dict, launches: dict) -> tuple:
     """({graph id: replays since ``replays0``}, the kernel launches those
     replays made, by kernel)."""
     graphs = _engine_graphs(engine)
-    replayed = {id(g): g.replays - replays0.get(id(g), 0) for g in graphs}
+    replayed = {id(g): g.replays - replays0.get(id(g), 0) for g in graphs}  # simlint: allow(id-key)
     graph_launches = {k: sum(g.launches_per_replay[k] * replayed[id(g)] for g in graphs)
                       for k in launches}
     return replayed, graph_launches
@@ -1843,6 +1857,7 @@ def _fleet_smoke_f32(seed: int) -> dict:
         res = fleet.run(workloads)
         got = {r.rid: [int(t) for t in r.tokens] for r in res.fleet.responses}
         pools = [r.core.policy.kv for r in fleet.replicas if r.endpoint == "chat"]
+        # simlint: allow(id-key) -- this process's graphs, keyed within one run
         graphs = {id(si2.graph_of(kv)) for kv in pools}
         offered = {r.name: r.offered for r in fleet.replicas}
         differ = [rid for rid in got if got[rid] != want[rid]]
@@ -1969,6 +1984,7 @@ def _session_run(session, names) -> tuple:
         replayed, gl = _replayed_since(e, replays0[n], launches)
         for k, v in gl.items():
             graph_launches[k] += v
+        # simlint: allow(id-key) -- this process's graphs, keyed within one run
         by_batch[n] = {g.batch: replayed[id(g)] for g in _engine_graphs(e) if replayed[id(g)]}
     return report, launches, graph_launches, by_batch
 
@@ -3051,14 +3067,248 @@ def phase_train(seed: int) -> dict:
     return out
 
 
+# the dry-run sweep's archs: one of each family (the CLI runs all ten)
+DRYRUN_ARCHS = ("minitron-4b", "mixtral-8x7b", "rwkv6-3b", "zamba2-2.7b", "whisper-small")
+DRYRUN_WORKERS = 8      # the card's host has 8 cores
+# the card check: (kind, batch, sequence) of full-width minitron-4b's step, as
+# the serve phase prefills (B 4 x 512, max_seq 512), one decode step (B 4
+# against a 1024-entry cache) and the train phase's step (B 2 x S 512, with
+# the dry-run's bf16 optimizer state and remat)
+DRYRUN_CARD_STEPS = (("prefill", 4, 512), ("decode", 4, 1024), ("train", 2, 512))
+DRYRUN_RATIO = (0.85, 1.15)   # predicted / measured peak bytes a device
+
+
+# a worker of the sweep: its share of the combos, one process, one record each
+_SWEEP_WORKER = """
+import json, sys, traceback
+from repro_torch.launch import dryrun
+for arch, shape, mesh in json.loads(sys.argv[2]):
+    try:
+        dryrun.run_one(arch, shape, mesh == "multi", sys.argv[1])
+    except Exception:
+        print("FAIL", arch, shape, mesh, flush=True)
+        traceback.print_exc()
+"""
+
+
+def _sweep_cost(arch: str, shape: str) -> int:
+    """Seconds a combo's trace took on the card's host (PR 25), to balance
+    the workers: the train steps and zamba2's prompt are the long ones."""
+    if shape == "train_4k":
+        return 300 if arch == "zamba2-2.7b" else 150
+    return 100 if (arch, shape) == ("zamba2-2.7b", "prefill_32k") else 8
+
+
+class DryrunSweep:
+    """The dry-run's sweep over DRYRUN_ARCHS' applicable shapes on both
+    meshes: DRYRUN_WORKERS processes with the card hidden (fake ranks trace
+    on fake CPU tensors and hold no device memory), each running its share
+    of the combos, longest first, balanced by ``_sweep_cost``.  Started
+    after the card's phases, so that no host-timed number shares the CPU."""
+
+    def __init__(self, out_dir: str):
+        from repro_torch.configs import SHAPES, applicable, get_arch, get_shape
+
+        self.out_dir = out_dir
+        combos = [(a, s, m) for a in DRYRUN_ARCHS for s in sorted(SHAPES)
+                  for m in ("single", "multi") if applicable(get_arch(a), get_shape(s))]
+        self.combos = sorted(combos, key=lambda c: -_sweep_cost(c[0], c[1]))
+        shares, load = [[] for _ in range(DRYRUN_WORKERS)], [0] * DRYRUN_WORKERS
+        for c in self.combos:
+            w = load.index(min(load))
+            shares[w].append(c)
+            load[w] += _sweep_cost(c[0], c[1])
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.path.join(ROOT, "src"))
+        os.makedirs(out_dir, exist_ok=True)
+        self.t0 = time.perf_counter()
+        self.logs, self.procs = [], []
+        for i, share in enumerate(s for s in shares if s):
+            log = open(os.path.join(out_dir, f"worker{i}.log"), "w")
+            self.logs.append(log)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", _SWEEP_WORKER, out_dir, json.dumps(share)],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+
+    def stop(self):
+        """Kill whatever still runs (a failed phase ends the script)."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in self.logs:
+            log.close()
+
+    def finish(self) -> list:
+        for p in self.procs:
+            p.wait()
+        lines, fails = [], []
+        for log, p in zip(self.logs, self.procs):
+            log.close()
+            with open(log.name) as f:
+                text = f.read()
+            if p.returncode or "FAIL" in text:
+                print(f"[dryrun worker rc {p.returncode}] {text[-4000:]}", file=sys.stderr)
+        for arch, shape, mesh in self.combos:
+            path = os.path.join(self.out_dir, f"{arch}_{shape}_{mesh}.json")
+            if not os.path.exists(path):
+                fails.append(f"{arch} x {shape} x {mesh}")
+                continue
+            with open(path) as f:
+                rec = json.load(f)
+            coll = rec["collectives"]
+            line = {"phase": "dryrun", "arch": arch, "shape": shape, "mesh": mesh,
+                    "kind": rec["kind"], "chips": rec["chips"],
+                    "peak_gb": rec["memory"]["peak_bytes_per_device"] / 1e9,
+                    "argument_gb": rec["memory"]["argument_size_in_bytes"] / 1e9,
+                    "fits_80gb": rec["fits_80gb"], "flops": rec["cost"]["flops"],
+                    "collective_bytes": {k: coll[k] for k in (
+                        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                        "collective-permute")},
+                    "collective_count": coll["count"], "fallbacks": rec["fallbacks"],
+                    "trace_s": rec["trace_s"]}
+            emit(line)
+            lines.append(line)
+        if fails:
+            raise AssertionError(f"dryrun: {len(fails)} combos failed: {fails}")
+        return lines
+
+
+def _card_step(cfg, kind: str, batch: int, seq: int, params, seed: int):
+    """The real step of (kind, batch, seq) on the card, its arguments made
+    first: (arguments, step) with the step a no-argument callable."""
+    import torch
+
+    from repro_torch.launch.specs import microbatches_for
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import transformer
+    from repro_torch.training import optim, trainer
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    if kind == "prefill":
+        args = {"tokens": tokens}
+        return args, lambda: transformer.prefill(params, cfg, args, max_seq=seq)
+    if kind == "decode":
+        cache = transformer.init_cache(cfg, batch, seq, device="cuda")
+        cache["lengths"].fill_(seq // 2)
+        new = tokens[:, 0].contiguous()
+        return (cache, new), lambda: transformer.decode_step(params, cfg, cache, new)
+    opt_state = optim.init_opt_state(params, dtype=torch.bfloat16)
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    b = {"tokens": tokens, "labels": labels}
+    mb = microbatches_for(cfg, ShapeConfig("card", seq, batch, "train"), 1)
+    step = trainer.make_train_step(cfg, optim.AdamWConfig(), remat=True, microbatches=mb,
+                                   device="cuda")
+    return (opt_state, b), lambda: step(params, opt_state, b)
+
+
+def _dryrun_card_check(seed: int, card_name: str) -> tuple:
+    """The dry-run's record of full-width minitron-4b on ``make_host_mesh()``
+    (1x1, the card) beside the same step run for real: for each of
+    DRYRUN_CARD_STEPS, the peak statistics are reset with the step's
+    arguments resident, the step runs with its kernels, and the prediction's
+    peak_bytes_per_device is held against torch.cuda.max_memory_allocated()
+    (DRYRUN_RATIO).  The trace itself must launch nothing."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.distributed.stats import memory_stats
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+
+    cfg = get_arch("minitron-4b")
+    mesh = mesh_lib.make_host_mesh()
+    if mesh.device_type != "cuda" or mesh.size() != 1:
+        raise AssertionError(f"dryrun: the host mesh is {mesh}, not the card")
+    params = transformer.init_params(cfg, seed, device="cuda")
+    checks, launches = [], dict.fromkeys(KERNEL_SOURCES, 0)
+    try:
+        for kind, batch, seq in DRYRUN_CARD_STEPS:
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            trace, traced_kind, _ = dryrun.trace_step(
+                cfg, ShapeConfig(f"card_{kind}", seq, batch, kind), mesh)
+            trace_s = time.perf_counter() - t
+            if traced_kind != kind or any(ops.launch_counts().values()):
+                raise AssertionError(f"dryrun: the {kind} trace launched "
+                                     f"{ops.launch_counts()}")
+            mem = memory_stats(trace)
+            del trace
+            args, step = _card_step(cfg, kind, batch, seq, params, seed)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            ops.reset_launch_counts()
+            grad = contextlib.nullcontext() if kind == "train" else torch.no_grad()
+            with grad:
+                out = step()
+            torch.cuda.synchronize()
+            measured = torch.cuda.max_memory_allocated()
+            counts = ops.launch_counts()
+            for k, v in counts.items():
+                launches[k] += v
+            del out, args, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            ratio = mem["peak_bytes_per_device"] / measured
+            row = {"phase": "dryrun_card", "arch": cfg.name, "kind": kind, "batch": batch,
+                   "seq": seq, "predicted_peak_bytes": mem["peak_bytes_per_device"],
+                   "predicted_argument_bytes": mem["argument_size_in_bytes"],
+                   "predicted_temp_bytes": mem["temp_size_in_bytes"],
+                   "predicted_output_bytes": mem["output_size_in_bytes"],
+                   "predicted_alias_bytes": mem["alias_size_in_bytes"],
+                   "resident_bytes": resident, "max_memory_allocated": measured,
+                   "ratio": ratio, "trace_s": trace_s, "launches": counts,
+                   "gpu": card_name}
+            emit(row)
+            checks.append(row)
+            if not DRYRUN_RATIO[0] <= ratio <= DRYRUN_RATIO[1]:
+                raise AssertionError(f"dryrun: {kind} predicted {mem['peak_bytes_per_device']}"
+                                     f" B, measured {measured} B: ratio {ratio:.4f} outside "
+                                     f"{DRYRUN_RATIO}")
+            if not any(counts[k] for k in SERVE_KERNELS):
+                raise AssertionError(f"dryrun: the real {kind} step launched no kernel")
+    finally:
+        del params
+        mesh_lib.release()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return checks, launches
+
+
+def phase_dryrun(sweep: DryrunSweep, card_check: tuple) -> dict:
+    """The dry-run: the card check (run first, in a clean process, by
+    ``_dryrun_card_check``), then the sweep's records."""
+    t_phase = time.perf_counter()
+    checks, launches = card_check
+    lines = sweep.finish()
+    out = {"phase": "dryrun", "gpu": smi(),
+           "ratios": {c["kind"]: c["ratio"] for c in checks},
+           "combos": len(lines), "sweep_s": time.perf_counter() - sweep.t0,
+           "fits_80gb": sum(r["fits_80gb"] for r in lines),
+           "launches": launches,
+           "graph_replay_launches": dict.fromkeys(launches, 0),
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def kernel_line(kernel_cases: dict, serve: dict, schedule: dict, fleet: dict,
-                api: dict, train: dict) -> dict:
+                api: dict, train: dict, dryrun: dict) -> dict:
     """One entry per kernel, its numbers at one main-path shape (in bf16; K5
     in f32, as the model feeds it; K1's backward at minitron-4b's training
     shape); every timed case under timed_cases.  ``launches`` sums the serve,
-    schedule, fleet, api and train paths' counts (eager)."""
+    schedule, fleet, api, train and dryrun paths' counts (eager)."""
     paths = {"serve": serve, "schedule": schedule, "fleet": fleet, "api": api,
-             "train": train}
+             "train": train, "dryrun": dryrun}
     main_shape = {"flash_attention": [4, 24, 8, 512, 128],
                   "flash_attention_bwd": [2, 24, 8, 512, 128],
                   "decode_attention": [4, 8, 3, 1024, 128],
@@ -3110,6 +3360,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", file=sys.stderr)
 
     phase_build()
+    # memory is compared in a process that holds nothing else yet
+    card_check = _dryrun_card_check(args.seed, smi())
     kernels = phase_kernels(args.seed)
     phase_model_parity(args.seed)
     serve = phase_serve(args.seed)
@@ -3118,10 +3370,15 @@ def main(argv=None) -> int:
     api = phase_api(args.seed)
     phase_formats(args.seed)
     train = phase_train(args.seed)
+    sweep = DryrunSweep(os.path.join(ROOT, "chiprun_out", "dryrun"))
+    try:
+        dryrun = phase_dryrun(sweep, card_check)
+    finally:
+        sweep.stop()
     kernels["flash_attention"] = kernels["flash_attention"] + train["flash_attention_lse"]
     for name in BACKWARD_KERNELS:
         kernels[name] = train[name]
-    emit(kernel_line(kernels, serve, schedule, fleet, api, train))
+    emit(kernel_line(kernels, serve, schedule, fleet, api, train, dryrun))
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,12 @@ wrapper raises.  The block-size arguments size the TPU kernels' tiles in the
 JAX package; the CUDA kernels pick their tiles from the shapes, so here they
 are accepted for call compatibility and have no effect.
 
+A tensor that holds no data (``is_fake``: a FakeTensor, or a DTensor of
+them, as the dry-run traces) goes to ``kernels/fake.py``: outputs of the
+kernel's shapes, its operations counted, nothing launched or run.  A plain
+tensor is told apart by its type alone, so the card's path pays one
+comparison.
+
 ``launch_counts`` and ``reset_launch_counts`` read and clear the plain
 integer each wrapper adds one to where it launches its kernel.
 """
@@ -14,6 +20,11 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
+
+from repro_torch.kernels import fake as _fake
 from repro_torch.kernels.decode_attention import decode_attention as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd as _flash_bwd
@@ -29,10 +40,18 @@ _WRAPPERS = {"flash_attention": _flash, "flash_attention_bwd": _flash_bwd,
              "moe_gmm_bwd": _gmm_bwd, "rwkv6_scan": _rwkv6, "rwkv6_scan_bwd": _rwkv6_bwd}
 
 
+def is_fake(t) -> bool:
+    """True for a tensor that holds no data: a FakeTensor or a DTensor."""
+    return type(t) is not torch.Tensor and isinstance(t, (FakeTensor, DTensor))
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, block_q=128,
                     block_kv=128, return_lse=False):
     """``return_lse``, beyond the JAX package's arguments: also return the
     row log-sum-exp (B, H, Sq) f32 that ``flash_attention_bwd`` reads."""
+    if is_fake(q):
+        return _fake.flash_attention(q, k, v, causal=causal, window=window,
+                                     return_lse=return_lse)
     return _flash(q, k, v, causal=causal, window=window, return_lse=return_lse)
 
 
@@ -40,18 +59,27 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None):
     """(dq, dk, dv) of ``flash_attention`` from its output ``o`` and ``lse``;
     the JAX package has no kernel of its own here (its attention backward is
     the custom VJP's rule, ``models/attention.py``)."""
+    if is_fake(q):
+        return _fake.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
     return _flash_bwd(q, k, v, o, lse, do, causal=causal, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window=None, block_s=512):
+    if is_fake(q):
+        return _fake.decode_attention(q, k_cache, v_cache, lengths, window=window)
     return _decode(q, k_cache, v_cache, lengths, window=window)
 
 
 def int8_matmul(x, w_q, scales, *, block_m=128, block_n=128, block_d=512):
+    if is_fake(x):
+        return _fake.int8_matmul(x, w_q, scales)
     return _int8(x, w_q, scales)
 
 
 def moe_gmm(x, w, group_sizes=None, *, block_c=128, block_f=128, block_d=256):
+    if is_fake(x):
+        return _fake.moe_gmm(x, w, group_sizes)
     return _gmm(x, w, group_sizes)
 
 
@@ -59,6 +87,8 @@ def moe_gmm_bwd(x, w, group_sizes, dy, *, need_dx=True, need_dw=True):
     """(dx, dw) of ``moe_gmm`` from dy (E, C, F), None where not asked for;
     the JAX package has no kernel of its own here (autodiff of its expert
     einsums, ``models/moe.py``)."""
+    if is_fake(x):
+        return _fake.moe_gmm_bwd(x, w, group_sizes, dy, need_dx=need_dx, need_dw=need_dw)
     return _gmm_bwd(x, w, group_sizes, dy, need_dx=need_dx, need_dw=need_dw)
 
 
@@ -67,6 +97,8 @@ def rwkv6_scan(r, k, v, w, u, s0, *, chunk=64, s_out=None, checkpoints=None):
     goes (it may be ``s0``, for an in-place update of a decode cache);
     ``checkpoints``: where the state entering every 16 steps goes, for
     ``rwkv6_scan_bwd``."""
+    if is_fake(r):
+        return _fake.rwkv6_scan(r, k, v, w, u, s0, s_out=s_out, checkpoints=checkpoints)
     return _rwkv6(r, k, v, w, u, s0, s_out=s_out, checkpoints=checkpoints)
 
 
@@ -75,6 +107,9 @@ def rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final=None, *, checkpoints=None):
     state's gradient; the JAX package has no kernel of its own here (autodiff
     of its ``lax.scan``, ``models/ssm.py``).  On the card it reads the
     forward's ``checkpoints``."""
+    if is_fake(r):
+        return _fake.rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final,
+                                    checkpoints=checkpoints)
     return _rwkv6_bwd(r, k, v, w, u, s0, dout, ds_final, checkpoints=checkpoints)
 
 

@@ -7,8 +7,9 @@ Layouts:
 
 On CUDA, ``attention`` with ``q_offset == 0`` and no ``kv_lengths`` -- every
 prefill call of the model -- runs the flash kernel (K1), and
-``decode_attention`` runs the decode kernel (K2).  Both kernels read these
-layouts in place by stride.  Other ``attention`` arguments on CUDA raise
+``decode_attention`` runs the decode kernel (K2); so do the dry-run's fake
+tensors (``ops.is_fake``), on any device.  Both kernels read these layouts
+in place by stride.  Other ``attention`` arguments on CUDA raise
 ``NotImplementedError``: no caller on the serving path makes them.
 
 Training: when grad mode is on and q, k or v requires grad, ``attention``
@@ -88,7 +89,7 @@ def attention(
                 "the attention backward takes q_offset=0 and no kv_lengths, as "
                 "every training call")
         return FlashAttention.apply(q, k, v, causal, window)
-    if q.is_cuda:
+    if q.is_cuda or ops.is_fake(q):
         if not prefill:
             raise NotImplementedError(
                 "attention on CUDA runs the prefill kernel: q_offset=0 and no "
@@ -215,7 +216,7 @@ def decode_attention(
     S = k_cache.shape[1]
     K = k_cache.shape[2]
     G = H // K
-    if q.is_cuda:
+    if q.is_cuda or ops.is_fake(q):
         o = ops.decode_attention(q.reshape(B, K, G, dh), k_cache.transpose(1, 2),
                                  v_cache.transpose(1, 2), lengths, window=window)
         return o.reshape(B, H, dh)

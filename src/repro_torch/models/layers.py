@@ -135,8 +135,11 @@ def unembed(x, table):
     (``out_dtype``), through ``_UnembedBF16``: upcasting a 256000 x 3072
     table would copy 3 GB on every step, and ``mm.dtype`` has no derivative
     of its own.  Outside autograd (serving) the Function builds no graph.
+    The dry-run's fake tensors take the card's path.
     """
-    if x.is_cuda and x.dtype == table.dtype == torch.bfloat16:
+    from repro_torch.kernels import ops  # local import avoids a cycle
+
+    if (x.is_cuda or ops.is_fake(x)) and x.dtype == table.dtype == torch.bfloat16:
         *lead, d = x.shape
         y = _UnembedBF16.apply(x.reshape(-1, d), table)
         return y.reshape(*lead, table.shape[1])

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -125,10 +126,13 @@ def moe_ffn(p, x, *, experts_per_token: int, capacity_factor: float = 1.25):
     xk = xf[None].expand(k, T, D).reshape(k * T, D)
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
     buf.index_add_(0, slot, xk)
-    xe = buf[: E * C].view(E, C, D)
+    # capacity rows over the data axis under a mesh (``ctx.constrain``): the
+    # scatter then moves only real token rows between shards
+    xe = ctx.constrain(buf[: E * C].view(E, C, D), (None, "dp", None), role="moe")
 
     h = F.silu(_gmm(xe, p["wi_gate"], group_sizes)) * _gmm(xe, p["wi_up"], group_sizes)
     ye = _gmm(h, p["wo"], group_sizes)                           # (E, C, D)
+    ye = ctx.constrain(ye, (None, "dp", None), role="moe")
 
     # combine: gather back in the model dtype, weight by gate, sum over slots
     yflat = torch.cat([ye.reshape(E * C, D), ye.new_zeros((1, D))])

@@ -112,9 +112,11 @@ class Rwkv6Scan(torch.autograd.Function):
             raise ValueError("Rwkv6Scan: the WKV scan trains in float32 (the model "
                              f"feeds it float32); got {r.dtype}")
         ctx.set_materialize_grads(False)
-        # the card's backward recomputes each chunk from these; the CPU's from s0
-        ckpt = (torch.empty(checkpoint_shape(*r.shape), dtype=torch.float32, device=r.device)
-                if r.device.type == "cuda" else None)
+        # the card's backward recomputes each chunk from these; the CPU's from
+        # s0.  Shaped from s0 (B, H, hd, hd) f32, so a DTensor keeps its shards
+        n = checkpoint_shape(*r.shape)[2]
+        ckpt = (torch.empty_like(s0[:, :, None].expand(-1, -1, n, -1, -1))
+                if r.device.type == "cuda" or ops.is_fake(r) else None)
         out, s_final = ops.rwkv6_scan(r, k, v, w, u, s0, checkpoints=ckpt)
         ctx.save_for_backward(r, k, v, w, u, s0, ckpt)
         return out, s_final

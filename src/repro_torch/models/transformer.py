@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.devices import resolve_device
+from repro_torch.distributed import ctx
 from repro_torch.models import layers, moe, rope, ssm
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.serving.formats import QTensor
@@ -371,6 +372,7 @@ def _decoder_layer(p, cfg, x, angles, *, window, remat: bool = False):
     """
 
     def body(p, x, angles):
+        x = ctx.constrain(x, ("dp", None, None))
         h, kv = _self_attention_full(
             p["attn"], cfg, layers.rms_norm(x, p["ln1"], cfg.norm_eps),
             angles, window=window,
@@ -414,8 +416,12 @@ def _sinusoid(positions, D: int):
 
 def _embed_in(params, cfg, batch):
     if batch.get("embeds") is not None:
-        return batch["embeds"].to(cfg.torch_dtype)
-    return layers.embed(batch["tokens"], params["embed"])
+        x = batch["embeds"].to(cfg.torch_dtype)
+    else:
+        x = layers.embed(batch["tokens"], params["embed"])
+    # pin batch sharding on the residual stream entry (the embedding table's
+    # own sharding must not leak onto activations)
+    return ctx.constrain(x, ("dp", None, None))
 
 
 def _lm_logits(params, cfg, x, logits_for: str = "all"):
@@ -452,6 +458,7 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = False,
     if cfg.family == "ssm":
         collected = []
         for lp in _layers(params["layers"], cfg.num_layers):
+            x = ctx.constrain(x, ("dp", None, None))
             x, state = ssm.rwkv6_block(lp, x, cfg.ssm_head_dim)
             if collect_kv:
                 collected.append(state)
@@ -491,6 +498,7 @@ def _forward_hybrid(params, cfg, batch, x, remat: bool = False):
     states, kvs = [], []
     for g in range(cfg.num_layers // ae):
         for lp in mamba[g * ae:(g + 1) * ae]:
+            x = ctx.constrain(x, ("dp", None, None))
             x, st = ssm.mamba2_block(lp, x, head_dim=cfg.ssm_head_dim,
                                      ssm_state=cfg.ssm_state)
             states.append(st)
@@ -510,6 +518,7 @@ def _forward_whisper(params, cfg, batch, *, collect_kv=False, logits_for: str = 
     enc = frames.to(dt) + _sinusoid(torch.arange(T, device=frames.device),
                                     cfg.d_model).to(dt)
     for lp in _layers(params["enc_layers"], cfg.encoder_layers):
+        enc = ctx.constrain(enc, ("dp", None, None))
         enc, _, _ = _decoder_layer(lp, cfg, enc, None, window=None)
     enc = layers.rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
 
@@ -519,6 +528,7 @@ def _forward_whisper(params, cfg, batch, *, collect_kv=False, logits_for: str = 
         torch.arange(S, device=tokens.device), cfg.d_model).to(dt)
     kvs, xkvs = [], []
     for lp in _layers(params["dec_layers"], cfg.num_layers):
+        x = ctx.constrain(x, ("dp", None, None))
         h, kv = _self_attention_full(
             lp["attn"], cfg, layers.rms_norm(x, lp["ln1"], cfg.norm_eps), None)
         x = x + h

@@ -2,10 +2,12 @@
 
 The counterpart of the JAX package's ``training/optim.py``, with the same
 arithmetic.  The optimizer state is {"m": tree, "v": tree, "step": int}: m
-and v mirror the parameters in float32, ``step`` counts the
-updates taken.  ``adamw_update`` updates the parameters, m and v IN PLACE
-(the JAX package returns new trees from donated buffers) with at most two
-float32 temporaries of one leaf at a time: at full width (minitron-4b, a
+and v mirror the parameters in float32 (or bfloat16, the dry-run's
+large-model configuration), ``step`` counts the updates taken.
+``adamw_update`` updates the parameters, m and v IN PLACE (the JAX package
+returns new trees from donated buffers) with at most two float32
+temporaries of one leaf at a time (three for bfloat16 m and v): at full
+width (minitron-4b, a
 786 M-entry embedding) the reference's expression would make about six
 3.1 GB temporaries of that leaf.
 """
@@ -48,15 +50,15 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def init_opt_state(params) -> Dict[str, Any]:
-    """Zero float32 m and v beside every parameter, on its device (the JAX
-    package's default; its bf16 option serves its multi-pod dry-runs, which
-    are not ported)."""
+def init_opt_state(params, dtype=torch.float32) -> Dict[str, Any]:
+    """Zero m and v beside every parameter, on its device.  dtype: float32
+    default; bfloat16 is the large-model memory configuration the
+    production dry-runs use (``launch/specs.py:opt_struct``)."""
     def zeros(p):
         if not torch.is_tensor(p) or not p.is_floating_point():
             raise ValueError(f"init_opt_state: {type(p).__name__} leaf is not a float "
                              "tensor (an rsm_int8 QTensor tree is not trainable)")
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros(p.shape, dtype=dtype, device=p.device)
 
     return {"m": _map(zeros, params), "v": _map(zeros, params), "step": 0}
 
@@ -86,6 +88,8 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
     ``stats`` holds 0-d tensors ``grad_norm`` (on the device) and ``lr``.
     The step's scalars (lr, bias corrections) are float32, as the JAX
     package's; the clip scale stays on the device, so no value is read back.
+    m and v in bfloat16 are updated in float32 and rounded back, as the
+    JAX package rounds them; that takes one float32 temporary more.
     """
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
@@ -105,14 +109,25 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
         for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
             if not torch.is_tensor(p) or not p.is_floating_point():
                 raise ValueError("adamw_update: an rsm_int8 QTensor tree is not trainable")
-            if m.dtype != torch.float32 or v.dtype != torch.float32:
-                raise ValueError("adamw_update: m and v must be float32")
-            g32 = g.to(torch.float32, copy=True).mul_(scale)  # temporary 1
-            m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
-            v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
+            if m.dtype not in (torch.float32, torch.bfloat16) or v.dtype != m.dtype:
+                raise ValueError("adamw_update: m and v must be both float32 or both "
+                                 "bfloat16")
+            # temporary 1, laid out as p (a sharded DTensor gradient is then
+            # reduced to p's shards here)
+            g32 = torch.empty_like(p, dtype=torch.float32).copy_(g).mul_(scale)
+            if m.dtype == torch.float32:
+                m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
+                v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
+                m32, v32 = m, v
+            else:                                             # temporaries 2, 3
+                m32 = m.float().mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
+                v32 = v.float().mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
+                m.copy_(m32)
+                v.copy_(v32)
             # delta = (m / b1c) / (sqrt(v / b2c) + eps), the root into g32
-            denom = torch.div(v, b2c, out=g32).sqrt_().add_(cfg.eps)
-            delta = torch.div(m, b1c).div_(denom)             # temporary 2
+            denom = torch.div(v32, b2c, out=g32).sqrt_().add_(cfg.eps)
+            del v32
+            delta = (torch.div(m, b1c) if m32 is m else m32.div_(b1c)).div_(denom)
             if p.ndim >= 2:   # decoupled weight decay on matrices only
                 delta.add_(p, alpha=cfg.weight_decay)
             # p - lr * delta (the same bits as p + (-lr) * delta), rounded

@@ -39,6 +39,25 @@ def batch_to(batch, device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+class _PickLabels(torch.autograd.Function):
+    """``logp`` at each label, (..., V) -> (...): ``torch.gather``'s value
+    and gradient, the gradient made by ``zeros_like(logp)`` so that it takes
+    logp's layout (a DTensor sharded over the vocabulary keeps its shards in
+    the dry-run, where ``gather``'s own backward would build the whole
+    (..., V) gradient from the labels' layout)."""
+
+    @staticmethod
+    def forward(ctx, logp, labels):
+        ctx.save_for_backward(logp, labels)
+        return torch.gather(logp, -1, labels[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, dll):
+        logp, labels = ctx.saved_tensors
+        g = torch.zeros_like(logp)
+        return g.scatter_add_(-1, labels[..., None], dll[..., None].to(g.dtype)), None
+
+
 def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = False,
             aux_weight: float = 1e-2):
     """Mean next-token cross-entropy (+ MoE load-balance aux)."""
@@ -46,7 +65,7 @@ def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = False,
     logits = out["logits"].float()
     labels = batch["labels"]
     logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    ll = _PickLabels.apply(logp, labels.long())
     mask = batch.get("loss_mask")
     if mask is None:
         loss = -ll.mean()
@@ -107,8 +126,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, remat: bool = Fal
                     raise ValueError(f"cannot split a batch leaf of shape {tuple(x.shape)}")
                 return x[:, i * n:(i + 1) * n]
 
-            g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in tree_leaves(params)]
+            # zeros_like: a sharded (DTensor) parameter gets a sharded sum
+            g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in tree_leaves(params)]
             loss, auxs = 0.0, []
             for i in range(microbatches):
                 l_i, aux, grads = loss_and_grads(

@@ -1137,3 +1137,102 @@ def _numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
     return tree.numpy()
+
+
+# -- the wrappers' fake branches (the dry-run) against the kernels -------------
+
+
+def _fake_cases(gen):
+    """(wrapper, its real CUDA operands, keyword arguments) at small shapes,
+    with the layouts the models pass."""
+    bf = torch.bfloat16
+    mk = lambda *shape, dtype=bf: torch.randn(*shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v = (mk(2, 64, h, 64).transpose(1, 2) for h in (4, 2, 2))
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    do = mk(2, 64, 4, 64).transpose(1, 2)
+    qd = mk(2, 2, 2, 64)
+    kc, vc = (mk(2, 80, 2, 64).transpose(1, 2) for _ in range(2))
+    lengths = torch.tensor([5, 80], dtype=torch.int32, device="cuda")
+    wq, scales = ops.quantize_int8(mk(256, 128, dtype=torch.float32))
+    x4, w4 = mk(4, 48, 64), mk(4, 64, 128)
+    gs = torch.tensor([48, 7, 0, 30], dtype=torch.int32, device="cuda")
+    dy4 = mk(4, 48, 128)
+    f32 = torch.float32
+    r, kk, vv = (mk(2, 20, 2, 32, dtype=f32).transpose(1, 2) for _ in range(3))
+    w = torch.sigmoid(mk(2, 20, 2, 32, dtype=f32)).transpose(1, 2)
+    u, s0 = mk(2, 32, dtype=f32), mk(2, 2, 32, 32, dtype=f32)
+    ck = torch.empty(k5.checkpoint_shape(2, 2, 20, 32), device="cuda")
+    dout = mk(2, 20, 2, 32, dtype=f32).transpose(1, 2)
+    return [
+        ("flash_attention", (q, k, v), dict(causal=True, window=None, return_lse=True)),
+        ("flash_attention_bwd", (q, k, v, o, lse, do), dict(causal=True, window=None)),
+        ("decode_attention", (qd, kc, vc, lengths), dict(window=None)),
+        ("int8_matmul", (mk(3, 256), wq, scales), {}),
+        ("moe_gmm", (x4, w4, gs), {}),
+        ("moe_gmm_bwd", (x4, w4, gs, dy4), dict(need_dx=True, need_dw=True)),
+        ("rwkv6_scan", (r, kk, vv, w, u, s0), dict(checkpoints=ck)),
+        ("rwkv6_scan_bwd", (r, kk, vv, w, u, s0, dout, None), dict(checkpoints=ck)),
+    ]
+
+
+def _layout(out):
+    outs = out if isinstance(out, tuple) else (out,)
+    return [None if t is None else (tuple(t.shape), t.dtype, t.stride()) for t in outs]
+
+
+def test_fake_branches_return_the_kernels_outputs(gen):
+    """Each of the eight wrappers on fake copies of its operands returns
+    outputs of the shapes, dtypes and strides the kernel returns on the
+    card, and launches nothing; on the real operands it launches once and
+    never enters its fake branch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import fake
+
+    cases = _fake_cases(gen)
+    assert sorted(name for name, _, _ in cases) == sorted(ops.launch_counts())
+    for name, args, kw in cases:
+        n = ops.launch_counts()
+        real = getattr(ops, name)(*args, **kw)
+        after = ops.launch_counts()
+        assert after[name] == n[name] + 1 and sum(after.values()) == sum(n.values()) + 1
+        mode = FakeTensorMode()
+        fakes = [None if a is None else mode.from_tensor(a) for a in args]
+        fkw = {k: mode.from_tensor(v) if torch.is_tensor(v) else v for k, v in kw.items()}
+        with mode:
+            got = getattr(ops, name)(*fakes, **fkw)
+        assert ops.launch_counts() == after, name
+        assert _layout(got) == _layout(real), name
+        assert all(t is None or ops.is_fake(t) for t in (got if isinstance(got, tuple)
+                                                         else (got,)))
+    # real tensors never reach a fake branch
+    for attr in ("flash_attention", "flash_attention_bwd", "decode_attention",
+                 "int8_matmul", "moe_gmm", "moe_gmm_bwd", "rwkv6_scan", "rwkv6_scan_bwd"):
+        original = getattr(fake, attr)
+        setattr(fake, attr, lambda *a, **k: pytest.fail("a real tensor took the fake branch"))
+        try:
+            name_args = [c for c in cases if c[0] == attr][0]
+            getattr(ops, attr)(*name_args[1], **name_args[2])
+        finally:
+            setattr(fake, attr, original)
+
+
+def test_dryrun_on_the_card_launches_nothing(gen):
+    """The dry-run on the card's 1x1 mesh (fake CUDA tensors) traces prefill,
+    decode and a train step of two smoke archs without one launch."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_host_mesh()
+    assert mesh.device_type == "cuda"
+    try:
+        for arch in ("minitron-4b-smoke", "mixtral-8x7b-smoke", "rwkv6-3b-smoke"):
+            for kind in ("prefill", "decode", "train"):
+                before = ops.launch_counts()
+                trace, traced, _ = dryrun.trace_step(get_arch(arch),
+                                                     ShapeConfig(kind, 32, 2, kind), mesh)
+                assert traced == kind and ops.launch_counts() == before
+                assert trace.kernels and trace.flops > 0
+    finally:
+        mesh_lib.release()
