@@ -114,9 +114,22 @@ Phases, each printed as one JSON line:
                 card's energy counter, then one step under torch.profiler by
                 part (one train_run line each; K1, K4, K5 and their
                 backward kernels counted per layer and step);
-                examples/train_small.py's flow (a ~100M qwen3, 200 steps, the
-                held-out loss, a checkpoint loaded and served through SI2);
-                python -m repro_torch.launch.train at smoke size
+                examples/torch_train_small.py at its defaults (a ~100M
+                qwen3, 200 steps; its held-out loss must fall by 0.2, its
+                loaded checkpoint serve through SI2 the tokens of the
+                trained tree); python -m repro_torch.launch.train at smoke
+                size
+  examples      the twins of examples/*.py through their own main():
+                quickstart (SI1 -> SI2 -> SI3 -> SI4) and serve_batched (SI3,
+                continuous batching over the binary codec) at full-width
+                minitron-4b (depth cut only if the temp disk cannot hold
+                SI4's rsm upload), then green_comparison, sweep_decisions,
+                serve_fleet, serve_disagg, serve_chaos, carbon_shift,
+                serve_monitored and serve_traced at their default (smoke)
+                arguments; one example line each (seconds, peak memory,
+                launches eager and by graph replay); SI1, SI2 and SI3 must
+                serve equal tokens, K1 and K2 launch inside both full-width
+                twins, K3 inside sweep_decisions
   dryrun        first, in a process that holds nothing else yet: full-width
                 minitron-4b on make_host_mesh() (1x1, this card): the
                 dry-run's predicted peak bytes of a prefill (B 4 x 512), a
@@ -124,12 +137,13 @@ Phases, each printed as one JSON line:
                 x 512, bf16 optimizer state, remat) beside
                 torch.cuda.max_memory_allocated() of the same step run with
                 its kernels, the ratio within DRYRUN_RATIO (dryrun_card
-                lines; the trace launches nothing); last, after the train
+                lines; the trace launches nothing); last, after the examples
                 phase, the dry-run's sweep on the 16x16 and 2x16x16 meshes
                 of fake ranks for minitron-4b, mixtral-8x7b, rwkv6-3b,
-                zamba2-2.7b and whisper-small, every applicable shape (one
-                dryrun line each: peak GB a device, fits_80gb, flops,
-                collective bytes by kind; any failure fails the phase)
+                zamba2-2.7b and whisper-small, every applicable shape, but
+                zamba2-2.7b's train step on the 16x16 mesh (one dryrun line
+                each: peak GB a device, fits_80gb, flops, collective bytes
+                by kind; any failure fails the phase)
 Then the kernel summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero.  Without a CUDA
 device it exits 1 and prints no result.
@@ -2093,31 +2107,32 @@ def _registered(cfg):
             del ARCHS[cfg.name]
 
 
-def _api_depth(seed: int, disk_free: int) -> tuple:
-    """(minitron-4b at full width, the registry's bytes, why depth was cut
-    or None): all 32 layers unless the temp disk cannot hold both formats'
-    files (with 10 % to spare); then as many layers as it can, width kept."""
+def _api_depth(seed: int, disk_free: int, fmts=("rsm", "rsm_int8")) -> tuple:
+    """(minitron-4b at full width, its weights on the card, the registry's
+    bytes, why depth was cut or None): all 32 layers unless the temp disk
+    cannot hold the files of ``fmts`` (with 10 % to spare); then as many
+    layers as it can, width kept."""
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer
 
     cfg = get_arch("minitron-4b")
     params = transformer.init_params(cfg, seed, device="cuda")
-    need = sum(_registry_bytes(params, f) for f in ("rsm", "rsm_int8"))
+    need = sum(_registry_bytes(params, f) for f in fmts)
     if need * 1.1 <= disk_free:
         return cfg, params, need, None
     per_layer = sum(_registry_bytes({"layers": params["layers"]}, f)
-                    for f in ("rsm", "rsm_int8")) / cfg.num_layers
+                    for f in fmts) / cfg.num_layers
     fixed = need - per_layer * cfg.num_layers
     n = int((disk_free / 1.1 - fixed) // per_layer)
     if n < 1:
-        raise AssertionError(f"api phase: {disk_free} B of temp disk hold no layer of "
+        raise AssertionError(f"{disk_free} B of temp disk hold no layer of "
                              f"{cfg.name} ({need} B for all {cfg.num_layers})")
     cut = dataclasses.replace(cfg, name=f"{cfg.name}-{n}l", num_layers=n)
     del params
     params = transformer.init_params(cut, seed, device="cuda")
     reason = (f"{n} of {cfg.num_layers} layers: the registry needs {need} B for all, the "
               f"temp disk has {disk_free} B free")
-    return cut, params, sum(_registry_bytes(params, f) for f in ("rsm", "rsm_int8")), reason
+    return cut, params, sum(_registry_bytes(params, f) for f in fmts), reason
 
 
 def _derived_entry(engine, batch: float, context: float, chip) -> dict:
@@ -2956,65 +2971,62 @@ def _train_full_width(seed: int, card, arch: str, layers=None, steps: int = 5,
     return out
 
 
-def _train_small(seed: int, steps: int = 200) -> dict:
-    """examples/train_small.py's flow on the card: the ~100M qwen3 variant
-    through train_loop, the held-out loss before and after, a checkpoint
-    saved and loaded into a fresh tree, and SI2 serving both trees."""
+def _train_small(seed: int) -> dict:
+    """examples/torch_train_small.py at its default arguments on the card
+    (the ~100M qwen3 variant, 200 steps, a checkpoint saved, loaded and
+    served through SI2), held to: the held-out loss (the mean over its two
+    eval batches) falls by >= 0.2 from the initial weights' to the trained
+    tree's, and the loaded checkpoint serves the tokens the trained tree in
+    memory serves."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_arch, smoke_variant
     from repro_torch.core.engines import CompiledEngine
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer
-    from repro_torch.training import checkpoint, trainer
-    from repro_torch.training.data import DataConfig, SyntheticLM, eval_batches
-    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training import trainer
+    from repro_torch.training.data import DataConfig, eval_batches
 
-    cfg = dataclasses.replace(
-        smoke_variant(get_arch("qwen3-8b")), name="qwen3-100m", num_layers=8, d_model=512,
-        num_heads=8, num_kv_heads=2, head_dim=64, d_ff=2048, vocab_size=32768)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, batch_size=8, seed=seed)
-    ev = eval_batches(dcfg, 2)
+    twin = _twin("train_small")
+    cfg = twin.model_config("qwen3-8b", 512, 8)
+    ev = eval_batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=128, batch_size=8), 2)
 
     def eval_loss(p):
         with torch.no_grad():
             return float(np.mean([float(trainer.lm_loss(p, cfg, trainer.batch_to(b, "cuda"))[0])
                                   for b in ev]))
 
-    params = transformer.init_params(cfg, seed, device="cuda")
-    before = eval_loss(params)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = trainer.train_loop(cfg, AdamWConfig(lr=6e-4, warmup_steps=20, total_steps=steps),
-                             SyntheticLM(dcfg).batches(), steps, params=params,
-                             log_every=max(steps // 10, 1), device="cuda")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    after = eval_loss(res["params"])
-    if not before - after >= 0.2:
-        raise AssertionError(f"train_small: held-out loss {before} -> {after}")
+    before = eval_loss(transformer.init_params(cfg, seed, device="cuda"))
+    trained = []
+    load = twin.load_checkpoint
+
+    def load_checkpoint(path, template, *a, **k):
+        trained.append(template)      # the trained tree the checkpoint came from
+        return load(path, template, *a, **k)
+
     build_dir = os.path.join(ROOT, "build")
     os.makedirs(build_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        path = os.path.join(tmp, f"step_{steps}")
-        nbytes = checkpoint.save_checkpoint(path, res["params"], res["opt_state"], steps)
-        loaded, opt, meta = checkpoint.load_checkpoint(path, res["params"], res["opt_state"],
-                                                       device="cuda")
-    if meta["step"] != steps or opt["step"] != steps:
-        raise AssertionError(f"train_small: checkpoint step {meta}")
-    prompts = ev[0]["tokens"][:4, :16]
-    want = CompiledEngine(cfg, res["params"], 160, device="cuda").generate(prompts, 8).tokens
-    got = CompiledEngine(cfg, loaded, 160, device="cuda").generate(prompts, 8).tokens
-    if not np.array_equal(got, want):
+    twin.load_checkpoint = load_checkpoint
+    try:
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            res, line = _run_twin("train_small", ["--ckpt", tmp, "--seed", str(seed)])
+    finally:
+        twin.load_checkpoint = load
+    after = eval_loss(trained[0])
+    if not before - after >= 0.2:
+        raise AssertionError(f"train_small: held-out loss {before} -> {after}")
+    if res["restored_step"] != res["steps"]:
+        raise AssertionError(f"train_small: checkpoint step {res['restored_step']}")
+    want = CompiledEngine(cfg, trained[0], res["seq"] + 32, device="cuda").generate(
+        ev[0]["tokens"][:1, :16], 8).tokens[0]
+    if not np.array_equal(want, res["tokens"]):
         raise AssertionError("train_small: the loaded checkpoint serves other tokens")
-    return {"arch": cfg.name, "params": cfg.param_count(), "steps": steps, "seq": 128,
-            "batch": 8, "seconds": seconds, "eval_loss_before": before,
-            "eval_loss_after": after, "history": [(h["step"], h["loss"])
-                                                  for h in res["history"]],
-            "checkpoint_bytes": nbytes, "served_tokens_equal": True,
-            "served_tokens": got.tolist(), "launches": launches}
+    return dict(line, arch=res["arch"], params=res["params"], steps=res["steps"],
+                seq=res["seq"], batch=res["batch"], train_seconds=res["seconds"],
+                eval_loss_before=before, eval_loss_after=after,
+                eval_loss_restored_first_batch=res["eval_loss"],
+                history=[(h["step"], h["loss"]) for h in res["history"]],
+                checkpoint_bytes=res["checkpoint_bytes"], served_tokens_equal=True,
+                served_tokens=res["tokens"])
 
 
 def _train_cli() -> dict:
@@ -3057,13 +3069,146 @@ def phase_train(seed: int) -> dict:
         card.close()
     out["train_small"] = _train_small(seed)
     out["cli"] = _train_cli()
-    # the main path's launches: the full-width runs' and train_small's loops
+    # the main path's launches: the full-width runs' loops and train_small's
+    # (its loop, its eval, its SI2 serve of the checkpoint)
     runs = out["full_width"] + [out["train_small"]]
     out["launches"] = {k: sum(r["launches"][k] for r in runs) for k in KERNEL_SOURCES}
-    out["graph_replay_launches"] = dict.fromkeys(out["launches"], 0)
+    out["graph_replay_launches"] = dict(out["train_small"]["graph_replay_launches"])
     out["seconds"] = time.perf_counter() - t_phase
     emit({k: v for k, v in out.items() if k not in ("flash_attention_lse",
                                                     *BACKWARD_KERNELS)})
+    return out
+
+
+# -- the examples phase -------------------------------------------------------------
+
+
+def _twin(name: str):
+    """examples/torch_<name>.py as a module (examples/ is no package)."""
+    import importlib.util
+
+    key = f"torch_{name}"
+    if key not in sys.modules:
+        path = os.path.join(ROOT, "examples", f"{key}.py")
+        spec = importlib.util.spec_from_file_location(key, path)
+        sys.modules[key] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[key])
+    return sys.modules[key]
+
+
+@contextlib.contextmanager
+def _captured_graphs():
+    """Every decode graph an SI2 engine captures while open, so that the
+    launches its replays make can be counted (the wrappers' counters see
+    only the capture)."""
+    from repro_torch.core.engines import CompiledEngine
+
+    graphs, capture = [], CompiledEngine._capture
+
+    def recording(self, batch):
+        graphs.append(capture(self, batch))
+        return graphs[-1]
+
+    CompiledEngine._capture = recording
+    try:
+        yield graphs
+    finally:
+        CompiledEngine._capture = capture
+
+
+def _run_twin(name: str, argv: list) -> tuple:
+    """``main`` of examples/torch_<name>.py on the card, its printout sent
+    to stderr: (its result, one line of seconds, peak memory and launches,
+    eager and by graph replay, printed on stdout)."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _captured_graphs() as graphs, contextlib.redirect_stdout(sys.stderr):
+        print(f"[torch_{name}] {' '.join(argv)}", flush=True)
+        res = _twin(name).main(argv + ["--device", "cuda"])
+        sys.stdout.flush()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    line = {"phase": "example", "twin": f"examples/torch_{name}.py", "argv": argv,
+            "seconds": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches,
+            "graph_replay_launches": {k: sum(g.launches_per_replay[k] * g.replays
+                                             for g in graphs) for k in launches},
+            "graphs": len(graphs)}
+    emit(line)
+    return res, line
+
+
+# the twins at their default (smoke) arguments; quickstart and serve_batched
+# also at full width below, train_small in the train phase
+EXAMPLE_TWINS = ("green_comparison", "sweep_decisions", "serve_fleet", "serve_disagg",
+                 "serve_chaos", "carbon_shift", "serve_monitored", "serve_traced")
+
+
+def phase_examples(seed: int) -> dict:
+    """The twins of examples/*.py through their own ``main``: quickstart
+    (SI1 -> SI4) and serve_batched (SI3 over the binary codec) at full-width
+    minitron-4b, their other arguments at the defaults; then every other
+    twin once at its default (smoke) arguments.  Fails on a twin that
+    raises, on quickstart's SI1, SI2 and SI3 serving other greedy tokens, on
+    K1 or K2 launched no time inside quickstart or serve_batched, and on K3
+    launched no time inside sweep_decisions (its bulk endpoint serves
+    rsm_int8)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    seed_args = ["--seed", str(seed)]
+    # quickstart's SI4 uploads the weights in rsm to a temp directory
+    disk_free = shutil.disk_usage(tempfile.gettempdir()).free
+    cfg, params, need, depth_cut = _api_depth(seed, disk_free, ("rsm",))
+    del params
+    out = {"phase": "examples", "arch": cfg.name, "layers": cfg.num_layers,
+           "depth_cut": depth_cut, "temp_disk_free": disk_free,
+           "registry_bytes_expected": need, "twins": {}}
+    lines = []
+    with _registered(cfg):
+        res, line = _run_twin("quickstart", ["--arch", cfg.name] + seed_args)
+        tokens = [res[si]["tokens"] for si in ("si1", "si2", "si3", "si4")]
+        if not tokens[0] == tokens[1] == tokens[2]:
+            raise AssertionError(f"quickstart: SI1, SI2 and SI3 serve other tokens: {tokens[:3]}")
+        out["twins"]["quickstart"] = dict(
+            line, tokens_si1_si2_si3_equal=True, tokens_si4_equal=tokens[3] == tokens[0],
+            tokens=tokens[0], summaries={si: res[si]["summary"] for si in
+                                         ("si1", "si2", "si3", "si4")},
+            si2_build_s=res["si2"]["build_s"], si4_replicas=res["si4"]["replicas"])
+        lines.append(line)
+        res, line = _run_twin("serve_batched", ["--arch", cfg.name] + seed_args)
+        out["twins"]["serve_batched"] = dict(line, summary=res["summary"], wire=res["wire"],
+                                             tokens=res["tokens"])
+        lines.append(line)
+    for name in ("quickstart", "serve_batched"):
+        counts = out["twins"][name]["launches"]
+        if not counts["flash_attention"] or not counts["decode_attention"]:
+            raise AssertionError(f"{name}: K1 or K2 not launched: {counts}")
+    for name in EXAMPLE_TWINS:
+        res, line = _run_twin(name, list(seed_args))
+        out["twins"][name] = dict(line, result=res)
+        lines.append(line)
+        if res.get("status", 0):
+            raise AssertionError(f"torch_{name}: status {res['status']}")
+    if not out["twins"]["sweep_decisions"]["launches"]["int8_matmul"]:
+        raise AssertionError("sweep_decisions: K3 not launched (its bulk endpoint serves "
+                             "rsm_int8)")
+    out["launches"] = {k: sum(ln["launches"][k] for ln in lines) for k in KERNEL_SOURCES}
+    out["graph_replay_launches"] = {k: sum(ln["graph_replay_launches"][k] for ln in lines)
+                                    for k in KERNEL_SOURCES}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({k: v for k, v in out.items() if k != "twins"})
+    print(json.dumps(out, default=str), file=sys.stderr, flush=True)
     return out
 
 
@@ -3091,33 +3236,44 @@ for arch, shape, mesh in json.loads(sys.argv[2]):
 """
 
 
-def _sweep_cost(arch: str, shape: str) -> int:
-    """Seconds a combo's trace took on the card's host (PR 25), to balance
-    the workers: the train steps and zamba2's prompt are the long ones."""
-    if shape == "train_4k":
-        return 300 if arch == "zamba2-2.7b" else 150
-    return 100 if (arch, shape) == ("zamba2-2.7b", "prefill_32k") else 8
+# left out of the sweep to make room for the examples phase: zamba2's train
+# step on the 16x16 mesh, the sweep's longest trace (249 s of its 271 s on
+# the card's host); its 2x16x16 trace stays, and the CLI traces both
+DRYRUN_SKIP = (("zamba2-2.7b", "train_4k", "single"),)
+
+# seconds each combo's trace took on the card's host, eight at a time, to
+# balance the workers; the rest took 1-8 s
+_SWEEP_SECONDS = {
+    ("zamba2-2.7b", "train_4k", "multi"): 142, ("mixtral-8x7b", "train_4k", "single"): 124,
+    ("rwkv6-3b", "train_4k", "single"): 115, ("mixtral-8x7b", "train_4k", "multi"): 86,
+    ("minitron-4b", "train_4k", "single"): 83, ("rwkv6-3b", "train_4k", "multi"): 69,
+    ("zamba2-2.7b", "prefill_32k", "multi"): 65, ("zamba2-2.7b", "prefill_32k", "single"): 61,
+    ("minitron-4b", "train_4k", "multi"): 55, ("whisper-small", "train_4k", "single"): 43,
+    ("whisper-small", "train_4k", "multi"): 31,
+}
 
 
 class DryrunSweep:
     """The dry-run's sweep over DRYRUN_ARCHS' applicable shapes on both
-    meshes: DRYRUN_WORKERS processes with the card hidden (fake ranks trace
-    on fake CPU tensors and hold no device memory), each running its share
-    of the combos, longest first, balanced by ``_sweep_cost``.  Started
-    after the card's phases, so that no host-timed number shares the CPU."""
+    meshes, but DRYRUN_SKIP: DRYRUN_WORKERS processes with the card hidden
+    (fake ranks trace on fake CPU tensors and hold no device memory), each
+    running its share of the combos, longest first, balanced by
+    ``_SWEEP_SECONDS``.  Started after the card's phases, so that no
+    host-timed number shares the CPU."""
 
     def __init__(self, out_dir: str):
         from repro_torch.configs import SHAPES, applicable, get_arch, get_shape
 
         self.out_dir = out_dir
         combos = [(a, s, m) for a in DRYRUN_ARCHS for s in sorted(SHAPES)
-                  for m in ("single", "multi") if applicable(get_arch(a), get_shape(s))]
-        self.combos = sorted(combos, key=lambda c: -_sweep_cost(c[0], c[1]))
+                  for m in ("single", "multi") if applicable(get_arch(a), get_shape(s))
+                  and (a, s, m) not in DRYRUN_SKIP]
+        self.combos = sorted(combos, key=lambda c: -_SWEEP_SECONDS.get(c, 8))
         shares, load = [[] for _ in range(DRYRUN_WORKERS)], [0] * DRYRUN_WORKERS
         for c in self.combos:
             w = load.index(min(load))
             shares[w].append(c)
-            load[w] += _sweep_cost(c[0], c[1])
+            load[w] += _SWEEP_SECONDS.get(c, 8)
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.path.join(ROOT, "src"))
         os.makedirs(out_dir, exist_ok=True)
         self.t0 = time.perf_counter()
@@ -3302,13 +3458,13 @@ def phase_dryrun(sweep: DryrunSweep, card_check: tuple) -> dict:
 
 
 def kernel_line(kernel_cases: dict, serve: dict, schedule: dict, fleet: dict,
-                api: dict, train: dict, dryrun: dict) -> dict:
+                api: dict, train: dict, examples: dict, dryrun: dict) -> dict:
     """One entry per kernel, its numbers at one main-path shape (in bf16; K5
     in f32, as the model feeds it; K1's backward at minitron-4b's training
     shape); every timed case under timed_cases.  ``launches`` sums the serve,
-    schedule, fleet, api, train and dryrun paths' counts (eager)."""
+    schedule, fleet, api, train, examples and dryrun paths' counts (eager)."""
     paths = {"serve": serve, "schedule": schedule, "fleet": fleet, "api": api,
-             "train": train, "dryrun": dryrun}
+             "train": train, "examples": examples, "dryrun": dryrun}
     main_shape = {"flash_attention": [4, 24, 8, 512, 128],
                   "flash_attention_bwd": [2, 24, 8, 512, 128],
                   "decode_attention": [4, 8, 3, 1024, 128],
@@ -3370,6 +3526,7 @@ def main(argv=None) -> int:
     api = phase_api(args.seed)
     phase_formats(args.seed)
     train = phase_train(args.seed)
+    examples = phase_examples(args.seed)
     sweep = DryrunSweep(os.path.join(ROOT, "chiprun_out", "dryrun"))
     try:
         dryrun = phase_dryrun(sweep, card_check)
@@ -3378,7 +3535,7 @@ def main(argv=None) -> int:
     kernels["flash_attention"] = kernels["flash_attention"] + train["flash_attention_lse"]
     for name in BACKWARD_KERNELS:
         kernels[name] = train[name]
-    emit(kernel_line(kernels, serve, schedule, fleet, api, train, dryrun))
+    emit(kernel_line(kernels, serve, schedule, fleet, api, train, examples, dryrun))
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -106,8 +106,9 @@ class StepTrace(TorchDispatchMode):
         self.outputs = {self._track(_local(t)) for t in _tensors(out)}
 
     # -- counting -------------------------------------------------------------
-    def count_kernel(self, name: str, flops: float, nbytes: int) -> None:
-        """A kernel wrapper's fake branch reports its call here."""
+    def count_kernel(self, name: str, flops: float, nbytes: int, out_bytes: int = 0) -> None:
+        """A kernel wrapper's fake branch reports its call here (``out_bytes``:
+        its results' share of ``nbytes``)."""
         k = self.kernels.setdefault(name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
         k["calls"] += 1
         k["flops"] += flops

@@ -1,4 +1,5 @@
-"""What each kernel wrapper does on a tensor that holds no data.
+"""What each kernel wrapper does on a tensor that holds no data, and on a
+DTensor.
 
 The dry-run (``launch/dryrun.py``) traces a step on fake tensors, sharded as
 DTensors over a mesh of fake ranks.  There a wrapper of ``kernels/ops.py``
@@ -35,6 +36,10 @@ picks it; every operand is redistributed to that shard (or to Replicate
 where it does not take part, or where the axis does not divide), so an
 operand sharded any other way is gathered first, as GSPMD gathers it.  A
 Partial output is summed (all-reduced) as the call returns.
+
+A DTensor over real shards takes the same redistribution, with the kernel's
+own wrapper (``real=True``) in place of the fake local call: on CUDA shards
+the kernel runs, on CPU shards its plain version.
 """
 
 from __future__ import annotations
@@ -46,6 +51,14 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.distributed.rules import summed
+from repro_torch.kernels.decode_attention import decode_attention as _decode_kernel
+from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd as _flash_bwd_kernel
+from repro_torch.kernels.int8_matmul import int8_matmul as _int8_kernel
+from repro_torch.kernels.moe_gmm import moe_gmm as _gmm_kernel
+from repro_torch.kernels.moe_gmm_bwd import moe_gmm_bwd as _gmm_bwd_kernel
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as _rwkv6_kernel
+from repro_torch.kernels.rwkv6_scan_bwd import rwkv6_scan_bwd as _rwkv6_bwd_kernel
 
 ATTN_BLOCK_KV = 512   # the JAX package's attention walks keys in blocks of 512
 
@@ -54,13 +67,14 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def _count(name: str, flops: float, nbytes: int) -> None:
+def _count(name: str, flops: float, nbytes: int, outs=()) -> None:
     """Report a call to every tracer on the dispatch mode stack (the stack,
-    unlike a thread-local, follows the autograd engine into its threads)."""
+    unlike a thread-local, follows the autograd engine into its threads);
+    ``outs``: the call's results, whose bytes a tracer may read too."""
     for mode in _get_current_dispatch_mode_stack():
         count = getattr(mode, "count_kernel", None)
         if count is not None:
-            count(name, flops, nbytes)
+            count(name, flops, nbytes, _nbytes(*outs))
 
 
 # --- the local calls: shapes, dtypes, layouts and counts ----------------------
@@ -72,7 +86,8 @@ def _flash(q, k, v, *, causal, window, return_lse):
     tp = -(-T // ATTN_BLOCK_KV) * ATTN_BLOCK_KV
     out = torch.empty((B, Sq, H, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    _count("flash_attention", 4.0 * B * H * Sq * tp * dh, _nbytes(q, k, v, out, lse))
+    _count("flash_attention", 4.0 * B * H * Sq * tp * dh, _nbytes(q, k, v, out, lse),
+           (out, lse) if return_lse else (out,))
     return (out, lse) if return_lse else (out,)
 
 
@@ -85,7 +100,7 @@ def _flash_bwd(q, k, v, o, lse, do, *, causal, window):
     dv = torch.empty((B, T, K, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     # s, dv, dp, dq and dk: five products over every (query, key) pair
     _count("flash_attention_bwd", 10.0 * B * H * Sq * tp * dh,
-           _nbytes(q, k, v, o, lse, do, dq, dk, dv))
+           _nbytes(q, k, v, o, lse, do, dq, dk, dv), (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -94,7 +109,7 @@ def _decode(q, k_cache, v_cache, lengths, *, window):
     S = k_cache.shape[2]
     out = torch.empty((B, K, G, dh), dtype=q.dtype, device=q.device)
     _count("decode_attention", 4.0 * B * K * G * S * dh,
-           _nbytes(q, k_cache, v_cache, lengths, out))
+           _nbytes(q, k_cache, v_cache, lengths, out), (out,))
     return (out,)
 
 
@@ -102,7 +117,7 @@ def _int8(x, w_q, scales):
     M, D = x.shape
     N = w_q.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _count("int8_matmul", 2.0 * M * N * D, _nbytes(x, w_q, scales, out))
+    _count("int8_matmul", 2.0 * M * N * D, _nbytes(x, w_q, scales, out), (out,))
     return (out,)
 
 
@@ -110,7 +125,7 @@ def _gmm(x, w, group_sizes):
     E, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
-    _count("moe_gmm", 2.0 * E * C * D * F, _nbytes(x, w, group_sizes, out))
+    _count("moe_gmm", 2.0 * E * C * D * F, _nbytes(x, w, group_sizes, out), (out,))
     return (out,)
 
 
@@ -120,7 +135,7 @@ def _gmm_bwd(x, w, group_sizes, dy, *, need_dx, need_dw):
     dx = torch.empty((E, C, D), dtype=x.dtype, device=x.device) if need_dx else None
     dw = torch.empty((E, D, F), dtype=w.dtype, device=x.device) if need_dw else None
     _count("moe_gmm_bwd", 2.0 * E * C * D * F * (int(need_dx) + int(need_dw)),
-           _nbytes(x, w, group_sizes, dy, dx, dw))
+           _nbytes(x, w, group_sizes, dy, dx, dw), (dx, dw))
     return dx, dw
 
 
@@ -130,7 +145,7 @@ def _rwkv6(r, k, v, w, u, s0, s_out, checkpoints):
     if s_out is None:
         s_out = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
     _count("rwkv6_scan", 2.0 * B * H * T * dh * dh,
-           _nbytes(r, k, v, w, u, s0, out, s_out, checkpoints))
+           _nbytes(r, k, v, w, u, s0, out, s_out, checkpoints), (out, s_out, checkpoints))
     return out, s_out
 
 
@@ -145,8 +160,28 @@ def _rwkv6_bwd(r, k, v, w, u, s0, dout, ds_final, checkpoints):
     # the two products of the forward's contraction, back through each step
     _count("rwkv6_scan_bwd", 4.0 * B * H * T * dh * dh,
            _nbytes(r, k, v, w, u, s0, dout, ds_final, checkpoints,
-                   dr, dk, dv, dw, du, ds0))
+                   dr, dk, dv, dw, du, ds0), (dr, dk, dv, dw, du, ds0))
     return dr, dk, dv, dw, du, ds0
+
+
+def _tuple(res) -> tuple:
+    return res if isinstance(res, tuple) else (res,)
+
+
+# the kernels' wrappers on real local shards, in the local calls' conventions
+REAL = {
+    "flash_attention": lambda q, k, v, **kw: _tuple(_flash_kernel(q, k, v, **kw)),
+    "flash_attention_bwd": _flash_bwd_kernel,
+    "decode_attention": lambda q, kc, vc, lengths, **kw: (_decode_kernel(q, kc, vc, lengths,
+                                                                         **kw),),
+    "int8_matmul": lambda x, w_q, scales: (_int8_kernel(x, w_q, scales),),
+    "moe_gmm": lambda x, w, group_sizes: (_gmm_kernel(x, w, group_sizes),),
+    "moe_gmm_bwd": _gmm_bwd_kernel,
+    "rwkv6_scan": lambda r, k, v, w, u, s0, s_out, checkpoints: _rwkv6_kernel(
+        r, k, v, w, u, s0, s_out=s_out, checkpoints=checkpoints),
+    "rwkv6_scan_bwd": lambda r, k, v, w, u, s0, dout, ds_final, checkpoints: _rwkv6_bwd_kernel(
+        r, k, v, w, u, s0, dout, ds_final, checkpoints=checkpoints),
+}
 
 
 # --- DTensor operands -----------------------------------------------------------
@@ -174,6 +209,9 @@ RULES: Dict[str, Rule] = {
     "rwkv6_scan_bwd": {"batch": ((0, 0, 0, 0, None, 0, 0, 0, 0), (0, 0, 0, 0, "partial", 0)),
                        "heads": ((1, 1, 1, 1, 0, 1, 1, 1, 1), (1, 1, 1, 1, 0, 1))},
 }
+
+# the operands a kernel writes in place: K5's s_out and checkpoints
+_IN_PLACE = {"rwkv6_scan": (6, 7)}
 
 # K1's kv operands and kv outputs (dk, dv): where the kv heads do not divide
 # the mesh dim the q heads are sharded over, but it is a multiple of them,
@@ -248,15 +286,20 @@ def _plan(name: str, operands) -> tuple:
     return mesh, ins, outs, grouped
 
 
-def call(name: str, local_fn, operands: Sequence, **kw):
+def call(name: str, local_fn, operands: Sequence, *, real: bool = False, **kw):
     """``local_fn(*operands, **kw)`` on fake tensors; with DTensor operands,
     on their local shards after redistributing them by ``RULES[name]`` (a
     plain operand counts as replicated), its outputs wrapped back as
     DTensors.  An output that is an operand (an in-place state) comes back
-    as that operand."""
+    as that operand.  ``real``: the shards hold data; the two layouts whose
+    local results would not be the rank's share of the kernel's (grouped kv
+    heads, an in-place operand that had to move) raise."""
     if not any(isinstance(t, DTensor) for t in operands):
         return local_fn(*operands, **kw)
     mesh, ins, outs, grouped = _plan(name, operands)
+    if real and grouped is not None:
+        raise NotImplementedError(f"{name}: q heads grouped over kv heads across ranks "
+                                  "are traced only on fake shards")
     local = []
     for i, (t, pl) in enumerate(zip(operands, ins)):
         if isinstance(t, torch.Tensor) and not isinstance(t, DTensor):
@@ -264,6 +307,9 @@ def call(name: str, local_fn, operands: Sequence, **kw):
             t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
         if isinstance(t, DTensor):
             if tuple(t.placements) != tuple(pl):
+                if real and i in _IN_PLACE.get(name, ()):
+                    raise NotImplementedError(f"{name}: its in-place operand {i} must lie "
+                                              f"as {pl} on real shards")
                 t = t.redistribute(mesh, pl)
             t = t.to_local()
             if grouped is not None and i in KV_HEADS[name][0]:
@@ -287,42 +333,49 @@ def call(name: str, local_fn, operands: Sequence, **kw):
     return tuple(wrapped)
 
 
-# --- the wrappers' fake branches, with ops.py's arguments ---------------------
+# --- the wrappers' branches, with ops.py's arguments -----------------------------
+# ``real``: the DTensor's shards hold data, so the kernel's wrapper runs on them
 
 
-def flash_attention(q, k, v, *, causal, window, return_lse):
-    res = call("flash_attention", _flash, (q, k, v), causal=causal, window=window,
-               return_lse=return_lse)
+def _local(name: str, fake_local, real: bool):
+    return REAL[name] if real else fake_local
+
+
+def flash_attention(q, k, v, *, causal, window, return_lse, real=False):
+    res = call("flash_attention", _local("flash_attention", _flash, real), (q, k, v),
+               real=real, causal=causal, window=window, return_lse=return_lse)
     return res if return_lse else res[0]
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal, window):
-    return call("flash_attention_bwd", _flash_bwd, (q, k, v, o, lse, do),
-                causal=causal, window=window)
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal, window, real=False):
+    return call("flash_attention_bwd", _local("flash_attention_bwd", _flash_bwd, real),
+                (q, k, v, o, lse, do), real=real, causal=causal, window=window)
 
 
-def decode_attention(q, k_cache, v_cache, lengths, *, window):
-    return call("decode_attention", _decode, (q, k_cache, v_cache, lengths),
-                window=window)[0]
+def decode_attention(q, k_cache, v_cache, lengths, *, window, real=False):
+    return call("decode_attention", _local("decode_attention", _decode, real),
+                (q, k_cache, v_cache, lengths), real=real, window=window)[0]
 
 
-def int8_matmul(x, w_q, scales):
-    return call("int8_matmul", _int8, (x, w_q, scales))[0]
+def int8_matmul(x, w_q, scales, *, real=False):
+    return call("int8_matmul", _local("int8_matmul", _int8, real), (x, w_q, scales),
+                real=real)[0]
 
 
-def moe_gmm(x, w, group_sizes):
-    return call("moe_gmm", _gmm, (x, w, group_sizes))[0]
+def moe_gmm(x, w, group_sizes, *, real=False):
+    return call("moe_gmm", _local("moe_gmm", _gmm, real), (x, w, group_sizes), real=real)[0]
 
 
-def moe_gmm_bwd(x, w, group_sizes, dy, *, need_dx, need_dw):
-    return call("moe_gmm_bwd", _gmm_bwd, (x, w, group_sizes, dy), need_dx=need_dx,
-                need_dw=need_dw)
+def moe_gmm_bwd(x, w, group_sizes, dy, *, need_dx, need_dw, real=False):
+    return call("moe_gmm_bwd", _local("moe_gmm_bwd", _gmm_bwd, real), (x, w, group_sizes, dy),
+                real=real, need_dx=need_dx, need_dw=need_dw)
 
 
-def rwkv6_scan(r, k, v, w, u, s0, *, s_out, checkpoints):
-    return call("rwkv6_scan", _rwkv6, (r, k, v, w, u, s0, s_out, checkpoints))
+def rwkv6_scan(r, k, v, w, u, s0, *, s_out, checkpoints, real=False):
+    return call("rwkv6_scan", _local("rwkv6_scan", _rwkv6, real),
+                (r, k, v, w, u, s0, s_out, checkpoints), real=real)
 
 
-def rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final, *, checkpoints):
-    return call("rwkv6_scan_bwd", _rwkv6_bwd,
-                (r, k, v, w, u, s0, dout, ds_final, checkpoints))
+def rwkv6_scan_bwd(r, k, v, w, u, s0, dout, ds_final, *, checkpoints, real=False):
+    return call("rwkv6_scan_bwd", _local("rwkv6_scan_bwd", _rwkv6_bwd, real),
+                (r, k, v, w, u, s0, dout, ds_final, checkpoints), real=real)

@@ -26,6 +26,7 @@ import json
 import os
 import time
 import traceback
+from typing import Optional
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -90,8 +91,9 @@ def distribute(tree, placements, mesh):
                               shape=tree.shape, stride=tree.stride())
 
 
-def trace_step(cfg, shape, mesh):
-    """Trace one step of (cfg, shape) on ``mesh``: (StepTrace, kind, seconds)."""
+def trace_step(cfg, shape, mesh, trace: Optional[StepTrace] = None):
+    """Trace one step of (cfg, shape) on ``mesh`` into ``trace`` (a fresh
+    ``StepTrace`` by default): (the trace, kind, seconds)."""
     rules.register()
     mode = FakeTensorMode()
     device = mesh.device_type
@@ -111,7 +113,7 @@ def trace_step(cfg, shape, mesh):
     del structs
     donate = {"train": (0, 1), "decode": (1,), "prefill": ()}[kind]
     roles = ("residual", "moe") if kind == "train" else ()
-    trace = StepTrace()
+    trace = StepTrace() if trace is None else trace
     trace.hold_arguments(args, donate)
     t0 = time.perf_counter()
     grad = contextlib.nullcontext() if kind == "train" else torch.no_grad()

@@ -1217,6 +1217,39 @@ def test_fake_branches_return_the_kernels_outputs(gen):
             setattr(fake, attr, original)
 
 
+def test_real_dtensors_launch_the_kernels(gen):
+    """F8 on the card: each of the eight wrappers on DTensors over real CUDA
+    shards (the 1x1 host mesh) launches its kernel once and returns, as
+    DTensors, the plain call's outputs."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_host_mesh()
+    assert mesh.device_type == "cuda"
+    try:
+        for name, args, kw in _fake_cases(gen):
+            want = getattr(ops, name)(*args, **kw)
+            dist = [None if a is None else DTensor.from_local(a, mesh, [Replicate()] * 2)
+                    for a in args]
+            assert not ops.is_fake(dist[0])
+            n = ops.launch_counts()
+            got = getattr(ops, name)(*dist, **kw)
+            after = ops.launch_counts()
+            assert after[name] == n[name] + 1 and sum(after.values()) == sum(n.values()) + 1
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert len(got) == len(want), name
+            for a, b in zip(got, want):
+                if b is None:
+                    assert a is None, name
+                    continue
+                assert isinstance(a, DTensor), name
+                torch.testing.assert_close(a.full_tensor(), b, rtol=0, atol=0, msg=name)
+    finally:
+        mesh_lib.release()
+
+
 def test_dryrun_on_the_card_launches_nothing(gen):
     """The dry-run on the card's 1x1 mesh (fake CUDA tensors) traces prefill,
     decode and a train step of two smoke archs without one launch."""

@@ -2,6 +2,7 @@
 unless the caller names the CPU; clear failures where the toolchain or the
 card is missing."""
 
+import importlib.util
 import os
 import pathlib
 import re
@@ -18,34 +19,52 @@ from repro_torch.kernels import build
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(repro_torch.__file__).resolve().parent
+# the entry points outside the package: the twins of examples/*.py and of
+# scripts/dump_ops.py
+TWINS = sorted(REPO.glob("examples/torch_*.py")) + [REPO / "scripts" / "torch_dump_ops.py"]
+
+
+def _load(path: pathlib.Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_every_module_imports_without_jax():
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location(path.split('/')[-1][:-3], path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items()"
         " if v is not None)\n"
-        "print(len(names))\n"
+        "print(len(names), len(sys.argv) - 1)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env=env, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code, *map(str, TWINS)], capture_output=True,
+                         text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    modules, twins = map(int, out.stdout.split())
+    assert modules >= 20 and twins == len(TWINS) == 12
 
 
 def test_sources_name_no_jax_and_no_reference_package():
     pattern = re.compile(r"\bjax\b|\brepro\.")
     sources = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     assert len(sources) >= 25
-    for path in sources:
+    for path in sources + TWINS:
         for i, line in enumerate(path.read_text().splitlines(), 1):
             assert not pattern.search(line), f"{path}:{i}: {line}"
+    for path in TWINS:
+        assert not re.search(r"\bbenchmarks\b\s*import|import\s+benchmarks\b",
+                             path.read_text()), path
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
@@ -94,6 +113,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
                  lambda: train.main(["--arch", cfg.name, "--steps", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+    # the twins of the examples and of dump_ops, at their default arguments
+    for path in TWINS:
+        argv = (["--arch", "minitron-4b", "--shape", "decode_32k"]
+                if path.stem == "torch_dump_ops" else [])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            _load(path).main(argv)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -138,3 +163,15 @@ def test_chip_smoke_fails_without_gpu_or_repo(alone, tmp_path):
                          env=env, cwd=script.parent, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_twins_write_outside_the_tracked_tree_by_default():
+    """The twins' default outputs go under examples_out/, which git ignores
+    (the originals write BENCH_*.json / .html beside the tracked files)."""
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert "examples_out/" in ignored
+    writers = [p for p in TWINS if "OUT_DIR" in p.read_text()]
+    assert {p.stem for p in writers} == {"torch_sweep_decisions", "torch_serve_monitored",
+                                         "torch_serve_traced", "torch_train_small"}
+    for path in writers:
+        assert pathlib.Path(_load(path).OUT_DIR).resolve() == REPO / "examples_out"
