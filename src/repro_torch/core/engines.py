@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import weakref
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -144,6 +144,11 @@ class Engine:
         batching, calibration) take their cache from here."""
         return transformer.init_cache(self.cfg, batch, max_seq, device=self.device)
 
+    def last_decode_device_ns(self) -> int:
+        """Device nanoseconds of the last ``decode_batch``, read once the
+        caller has synchronised; -1 where the engine does not time it."""
+        return -1
+
 
 class EagerEngine(Engine):
     """SI1: no runtime engine -- op-by-op framework dispatch."""
@@ -164,6 +169,9 @@ class _DecodeGraph:
     tokens: torch.Tensor          # (B,) int32 input
     logits: torch.Tensor          # (B, V) f32 output, overwritten by replay
     launches_per_replay: Dict[str, int]
+    # recorded on the stream around each replay: its device time
+    started: torch.cuda.Event
+    ended: torch.cuda.Event
     capture_s: float = 0.0        # the eager step and the capture
     replays: int = 0
 
@@ -200,6 +208,7 @@ class CompiledEngine(Engine):
         # cache was dropped, free to hand out again (by batch)
         self.slot_graphs: List[_DecodeGraph] = []
         self._free: Dict[int, List[_DecodeGraph]] = {}
+        self._last: Optional[_DecodeGraph] = None      # the last graph replayed
 
     def _capture(self, batch: int) -> _DecodeGraph:
         cfg, params = self.cfg, self.params
@@ -223,6 +232,8 @@ class CompiledEngine(Engine):
         per_replay = {k: after[k] - before[k] for k in after}
         self._sync()
         return _DecodeGraph(graph, cache, tokens, logits, per_replay,
+                            torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True),
                             capture_s=time.perf_counter() - t0)
 
     def _graph(self, batch: int) -> _DecodeGraph:
@@ -285,9 +296,20 @@ class CompiledEngine(Engine):
                 return transformer.decode_step(self.params, self.cfg, cache, tokens)
         g = self.graph_of(cache)
         g.tokens.copy_(tokens)
+        g.started.record()
         g.graph.replay()
+        g.ended.record()
         g.replays += 1
+        self._last = g
         return g.logits, cache
+
+    def last_decode_device_ns(self) -> int:
+        """The last graph replay's device time, from the event pair recorded
+        around it on the stream; adds no sync, so call it after one."""
+        g = self._last
+        if g is None:
+            return -1
+        return int(g.started.elapsed_time(g.ended) * 1e6)
 
     def warmup(self, batch: int, prompt_len: int) -> float:
         """Run one prefill and capture the decode step for ``batch``; returns

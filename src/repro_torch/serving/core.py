@@ -48,6 +48,7 @@ from repro_torch.serving.admission.priority import AdmissionControl, priority_le
 from repro_torch.serving.queue import PendingQueue
 from repro_torch.serving.request import Request, Response, ServingMetrics
 from repro_torch.serving.stepcache import StepTimeCache, shape_bucket, synth_tokens
+from repro_torch.serving.telemetry.wall import WallLog
 
 
 def pad_prompts(prompts: List[np.ndarray],
@@ -117,6 +118,9 @@ class SchedulerCore:
         # event of every meter lifetime is observed.  Pure observer: a
         # traced run is bit-identical to an untraced one.
         self.tracer = None
+        # wall-clock spans of the policy's steps (telemetry/wall.py):
+        # made once, never reset, so a caller reads them after a run
+        self.wall_log = WallLog()
         self._reset([])
 
     def _reset(self, workload: List[Request]) -> None:

@@ -25,7 +25,6 @@ The legacy ``*Scheduler`` classes remain as constructors-compatible shells:
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from typing import List, Optional
 
@@ -244,86 +243,103 @@ class ContinuousBatchPolicy(SchedulingPolicy):
             if nxt is None or nxt.arrival_s > core.now:
                 return
             req = core.pop_next(core.now)   # most urgent arrived request
-            # bucket prompt length to a power of two so the compiled prefill
-            # executable (and its measured duration) is reused across requests
-            S = len(req.prompt)
-            bucket = shape_bucket(S)
-            prompt = np.zeros((bucket,), np.int32)
-            prompt[:S] = req.prompt
+            with core.wall_log.span("repro_torch.admit", req.rid):
+                self._admit_one(core, req, s)
 
-            def thunk():
-                # sanctioned measurement closure: a step-cache MISS really
-                # executes the engine, and the measured duration is what the
-                # virtual clock replays from then on
+    def _admit_one(self, core: SchedulerCore, req: Request, s: int) -> None:
+        wall = core.wall_log
+        # bucket prompt length to a power of two so the compiled prefill
+        # executable (and its measured duration) is reused across requests
+        S = len(req.prompt)
+        bucket = shape_bucket(S)
+        prompt = np.zeros((bucket,), np.int32)
+        prompt[:S] = req.prompt
+
+        def thunk():
+            # sanctioned measurement closure: a step-cache MISS really
+            # executes the engine, and the measured duration (the prefill
+            # span's) is what the virtual clock replays from then on
+            with wall.span("repro_torch.drain", req.rid):
                 core.engine._sync()
-                t0 = time.perf_counter()          # simlint: allow(wall-clock)
+            with wall.span("repro_torch.prefill", req.rid) as span:
                 logits, sub = core.engine.prefill_one(prompt[None, :])
                 tok = torch.argmax(logits, -1).to(torch.int32)
+                span.enqueued()
                 core.engine._sync()
-                dt = time.perf_counter() - t0     # simlint: allow(wall-clock)
-                return (dt,), (tok, sub)
+            span.tokens, span.bucket = S, bucket
+            return (span.seconds,), (tok, sub)
 
-            (dt,), out = core.timed(("prefill1", bucket), thunk)
-            start = core.now
-            core.advance_active(dt, rids=[req.rid], tokens=1)
-            self.slot_synth[s] = out is None
-            if out is not None:
+        (dt,), out = core.timed(("prefill1", bucket), thunk)
+        start = core.now
+        core.advance_active(dt, rids=[req.rid], tokens=1)
+        self.slot_synth[s] = out is None
+        if out is not None:
+            with wall.span("repro_torch.insert", req.rid):
                 tok, sub = out
                 self.kv = self._insert(self.kv, sub, s)
                 self.cur_tok[s] = tok[0]
                 first = int(tok[0])
-            else:
-                first = int(synth_tokens(req.prompt, 1, core.vocab)[0])
-            self.slot_req[s] = req
-            self.slot_emitted[s] = 1
-            self.slot_tokens[s] = [first]
-            self.slot_start[s] = start
-            self.slot_ttft[s] = core.now
+        else:
+            first = int(synth_tokens(req.prompt, 1, core.vocab)[0])
+        self.slot_req[s] = req
+        self.slot_emitted[s] = 1
+        self.slot_tokens[s] = [first]
+        self.slot_start[s] = start
+        self.slot_ttft[s] = core.now
 
     def step(self, core: SchedulerCore) -> None:
+        with core.wall_log.span("repro_torch.step"):
+            self._step(core)
+
+    def _step(self, core: SchedulerCore) -> None:
+        wall = core.wall_log
         self._admit(core)
         if not self.active(core):
             nxt = core.peek()
             if nxt is not None:
                 core.advance_to(nxt.arrival_s)   # idle until next arrival
             return
+        rids = [r.rid for r in self.slot_req if r is not None]
 
         def thunk():
             # sanctioned measurement closure (see the prefill thunk above)
-            core.engine._sync()
-            t0 = time.perf_counter()              # simlint: allow(wall-clock)
-            logits, kv = core.engine.decode_batch(self.kv, self.cur_tok)
-            tok = torch.argmax(logits, -1).to(torch.int32)
-            core.engine._sync()
-            dt = time.perf_counter() - t0         # simlint: allow(wall-clock)
-            return (dt,), (tok, kv)
+            with wall.span("repro_torch.drain"):
+                core.engine._sync()
+            with wall.span("repro_torch.decode") as span:
+                logits, kv = core.engine.decode_batch(self.kv, self.cur_tok)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                core.engine._sync()
+            span.tokens = len(rids)
+            span.device_ns = core.engine.last_decode_device_ns()
+            return (span.seconds,), (tok, kv)
 
         (dt,), out = core.timed(("decode", self.num_slots), thunk)
-        rids = [r.rid for r in self.slot_req if r is not None]
         core.advance_active(dt, rids=rids, tokens=len(rids))
         if out is not None:
             tok, self.kv = out
             self.cur_tok = tok
-            host_tok = tok.cpu().numpy()          # one device->host read a step
-        for s in range(self.num_slots):
-            req = self.slot_req[s]
-            if req is None:
-                continue
-            if out is not None and not self.slot_synth[s]:
-                nxt_tok = int(host_tok[s])
-            else:
-                nxt_tok = int(
-                    synth_tokens(req.prompt, self.slot_emitted[s] + 1,
-                                 core.vocab)[-1]
-                )
-            self.slot_emitted[s] += 1
-            self.slot_tokens[s].append(nxt_tok)
-            if self.slot_emitted[s] >= req.max_new_tokens:
-                core.record_response(
-                    req, self.slot_tokens[s][: req.max_new_tokens],
-                    self.slot_start[s], self.slot_ttft[s], core.now,
-                )
-                self.slot_req[s] = None
+            with wall.span("repro_torch.token_read"):
+                host_tok = tok.cpu().numpy()      # one device->host read a step
+        with wall.span("repro_torch.retire"):
+            for s in range(self.num_slots):
+                req = self.slot_req[s]
+                if req is None:
+                    continue
+                if out is not None and not self.slot_synth[s]:
+                    nxt_tok = int(host_tok[s])
+                else:
+                    nxt_tok = int(
+                        synth_tokens(req.prompt, self.slot_emitted[s] + 1,
+                                     core.vocab)[-1]
+                    )
+                self.slot_emitted[s] += 1
+                self.slot_tokens[s].append(nxt_tok)
+                if self.slot_emitted[s] >= req.max_new_tokens:
+                    core.record_response(
+                        req, self.slot_tokens[s][: req.max_new_tokens],
+                        self.slot_start[s], self.slot_ttft[s], core.now,
+                    )
+                    self.slot_req[s] = None
 
 
 # -- disaggregated phase policies (prefill/decode pools) ---------------------------

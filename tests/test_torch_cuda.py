@@ -1269,3 +1269,26 @@ def test_dryrun_on_the_card_launches_nothing(gen):
                 assert trace.kernels and trace.flops > 0
     finally:
         mesh_lib.release()
+
+
+def test_si2_decode_spans_carry_the_replay_device_time(gen):
+    """Each executed decode of a continuous batch on SI2 records its graph
+    replay's device time (CUDA events, read after the closing sync): above
+    zero and within the host-timed call; an EagerEngine times none."""
+    from repro_torch.serving.request import synth_workload
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    cfg = get_arch("minitron-4b-smoke")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    si2 = CompiledEngine(cfg, params, 64)
+    assert si2.last_decode_device_ns() == -1
+    for engine in (si2, EagerEngine(cfg, params, 64)):
+        sched = ContinuousBatchScheduler(engine, num_slots=4, max_seq=64)
+        sched.run(synth_workload(6, 8, 5, cfg.vocab_size, rate_per_s=300, seed=4))
+        decodes = [s for s in sched.core.wall_log.spans() if s.name == "repro_torch.decode"]
+        assert decodes
+        for s in decodes:
+            if engine is si2:
+                assert 0 < s.device_ns <= s.end_ns - s.start_ns
+            else:
+                assert s.device_ns == -1
