@@ -1318,19 +1318,27 @@ def _engine_graphs(engine) -> list:
     return list(getattr(engine, "graphs", {}).values()) + list(getattr(engine, "slot_graphs", []))
 
 
+def _prefill_graphs(engine) -> list:
+    """Every B = 1 prefill graph of an engine, one a prompt length (none
+    under SI1)."""
+    return list(getattr(engine, "prefill_graphs", {}).values())
+
+
 def _graph_replays(engine) -> dict:
     # simlint: allow(id-key) -- this process's graphs, keyed within one run
-    return {id(g): g.replays for g in _engine_graphs(engine)}
+    return {id(g): g.replays for g in _engine_graphs(engine) + _prefill_graphs(engine)}
 
 
 def _replayed_since(engine, replays0: dict, launches: dict) -> tuple:
-    """({graph id: replays since ``replays0``}, the kernel launches those
-    replays made, by kernel)."""
-    graphs = _engine_graphs(engine)
-    replayed = {id(g): g.replays - replays0.get(id(g), 0) for g in graphs}  # simlint: allow(id-key)
-    graph_launches = {k: sum(g.launches_per_replay[k] * replayed[id(g)] for g in graphs)
+    """({decode graph id: replays since ``replays0``}, the kernel launches
+    the replays of every graph made, by kernel, the prefill graphs'
+    replays since ``replays0``)."""
+    decode, prefill = _engine_graphs(engine), _prefill_graphs(engine)
+    since = {id(g): g.replays - replays0.get(id(g), 0) for g in decode + prefill}  # simlint: allow(id-key)
+    graph_launches = {k: sum(g.launches_per_replay[k] * since[id(g)] for g in decode + prefill)
                       for k in launches}
-    return replayed, graph_launches
+    replayed = {id(g): since[id(g)] for g in decode}  # simlint: allow(id-key)
+    return replayed, graph_launches, sum(since[id(g)] for g in prefill)
 
 
 SCHEDULE_POLICY = dict(max_batch=8, timeout_ms=20.0, max_seq=1024, ttft_slo_ms=200.0)
@@ -1360,7 +1368,7 @@ def _schedule_run(card, engine, kind: str, workload, wl_name: str, fmt: str,
     live, card_e = card.measure(lambda: core.run(workload()))
     peak = torch.cuda.max_memory_allocated()
     launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
-    replayed, graph_launches = _replayed_since(engine, replays0, launches)
+    replayed, graph_launches, prefill_replays = _replayed_since(engine, replays0, launches)
     if steps.hits:
         raise AssertionError(f"{kind}: {steps.hits} dispatches replayed in a live run")
     billed = SchedulerCore(engine, make_policy(kind, **SCHEDULE_POLICY),
@@ -1379,7 +1387,7 @@ def _schedule_run(card, engine, kind: str, workload, wl_name: str, fmt: str,
         "latency_p95_s": live.latency_percentile(95),
         "tokens_per_s": live.throughput_tok_s,
         "dispatches_executed": steps.executed(), "dispatches_replayed": steps.hits,
-        "prefills": launches["flash_attention"] // L,
+        "prefills": launches["flash_attention"] // L + prefill_replays,
         "decode_steps": launches["decode_attention"] // L + sum(replayed.values()),
         "graph_replays": sum(replayed.values()),
         "wall_s": card_e["s"], "active_s": billed.meter.active_s,
@@ -1637,10 +1645,11 @@ def _fleet_run(card, run: dict, calib: dict, idle_w: float, engines: list) -> di
         live, card_e = card.measure(lambda: fleet.run(run["workloads"]()))
         launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    replayed, graph_launches = 0, dict.fromkeys(launches, 0)
+    replayed, prefill_replays, graph_launches = 0, 0, dict.fromkeys(launches, 0)
     for e, r0 in zip(engines, replays0):
-        rep, gl = _replayed_since(e, r0, launches)
+        rep, gl, pre = _replayed_since(e, r0, launches)
         replayed += sum(rep.values())
+        prefill_replays += pre
         for k, n in gl.items():
             graph_launches[k] += n
     if any(r.hits for r in recorders):
@@ -1724,7 +1733,7 @@ def _fleet_run(card, run: dict, calib: dict, idle_w: float, engines: list) -> di
         "cold_starts": stats["cold_starts"], "scale_events": stats["scale_events"],
         "dispatches_executed": executed, "executed_s": executed_s,
         "billed_active_s": billed_s, "executed_over_billed": executed_s / billed_s,
-        "prefills": launches["flash_attention"] // L,
+        "prefills": launches["flash_attention"] // L + prefill_replays,
         "decode_steps": launches["decode_attention"] // L + replayed,
         "graph_replays": replayed, "launches": launches,
         "graph_replay_launches": graph_launches, "max_memory_allocated": peak,
@@ -1995,7 +2004,7 @@ def _session_run(session, names) -> tuple:
     graph_launches = dict.fromkeys(launches, 0)
     by_batch = {}
     for n, e in engines.items():
-        replayed, gl = _replayed_since(e, replays0[n], launches)
+        replayed, gl, _ = _replayed_since(e, replays0[n], launches)
         for k, v in gl.items():
             graph_launches[k] += v
         # simlint: allow(id-key) -- this process's graphs, keyed within one run
@@ -3098,22 +3107,27 @@ def _twin(name: str):
 
 @contextlib.contextmanager
 def _captured_graphs():
-    """Every decode graph an SI2 engine captures while open, so that the
-    launches its replays make can be counted (the wrappers' counters see
-    only the capture)."""
+    """Every decode and B = 1 prefill graph an SI2 engine captures while
+    open, so that the launches its replays make can be counted (the
+    wrappers' counters see only the capture)."""
     from repro_torch.core.engines import CompiledEngine
 
-    graphs, capture = [], CompiledEngine._capture
+    graphs = []
+    originals = {name: getattr(CompiledEngine, name) for name in ("_capture", "_capture_prefill")}
 
-    def recording(self, batch):
-        graphs.append(capture(self, batch))
-        return graphs[-1]
+    def recording(capture):
+        def record(self, arg):
+            graphs.append(capture(self, arg))
+            return graphs[-1]
+        return record
 
-    CompiledEngine._capture = recording
+    for name, capture in originals.items():
+        setattr(CompiledEngine, name, recording(capture))
     try:
         yield graphs
     finally:
-        CompiledEngine._capture = capture
+        for name, capture in originals.items():
+            setattr(CompiledEngine, name, capture)
 
 
 def _run_twin(name: str, argv: list) -> tuple:

@@ -6,13 +6,17 @@ model op by op.  Simple, no capture latency, no launch-overhead savings.
 SI2 ``CompiledEngine`` -- the paper's 'Runtime engine': at ``warmup`` (or at
 the first prefill of a batch size) one decode step is captured into a CUDA
 graph whose static buffers hold the KV cache, which the graph updates in
-place (the counterpart of the JAX package's donated cache).  Prefill stays
-eager and writes its k/v straight into those buffers; every decode step
-replays the graph.  A slot-pool caller (continuous batching, calibration)
-gets a cache of its own from ``decode_cache``, decoded by a graph captured
-on that cache's buffers, so two pools on one engine (two replicas of an
-endpoint) never share slots.  A failed capture raises; it never falls back
-to eager.  On the CPU the same step functions run uncaptured.
+place (the counterpart of the JAX package's donated cache), and every
+decode step replays the graph.  A B = 1 prefill (``prefill_one``, each
+admission of continuous batching) replays a graph of its own prompt length,
+captured at the first call of that length, which writes its k/v straight
+into the B = 1 decode graph's buffers; ``generate``'s (B, S) prefill stays
+eager and writes into the buffers of its batch's graph.  A slot-pool caller
+(continuous batching, calibration) gets a cache of its own from
+``decode_cache``, decoded by a graph captured on that cache's buffers, so
+two pools on one engine (two replicas of an endpoint) never share slots.
+A failed capture raises; it never falls back to eager.  On the CPU the
+same step functions run uncaptured.
 """
 
 from __future__ import annotations
@@ -149,6 +153,11 @@ class Engine:
         caller has synchronised; -1 where the engine does not time it."""
         return -1
 
+    def last_prefill_replayed(self) -> bool:
+        """Whether the last ``prefill_one`` replayed a captured graph (False
+        for an eager or a capturing call)."""
+        return False
+
 
 class EagerEngine(Engine):
     """SI1: no runtime engine -- op-by-op framework dispatch."""
@@ -184,6 +193,19 @@ class _DecodeGraph:
         return sum(t.numel() * t.element_size() for t in self.cache.values())
 
 
+@dataclasses.dataclass
+class _PrefillGraph:
+    """One captured B = 1 prefill of one prompt length and its static buffers."""
+
+    graph: torch.cuda.CUDAGraph
+    tokens: torch.Tensor          # (1, S) int32 input
+    logits: torch.Tensor          # (1, V) f32 output, overwritten by any prefill graph
+    cache: dict                   # the B = 1 decode graph's buffers, written in place
+    launches_per_replay: Dict[str, int]
+    capture_s: float = 0.0        # the eager prefill and the capture
+    replays: int = 0              # calls served by a replay (the capturing one not counted)
+
+
 class _SlotCache(dict):
     """A slot cache handed out by ``CompiledEngine.decode_cache``: a dict of
     its graph's buffers that carries the graph (``graph``) and can be weakly
@@ -192,11 +214,13 @@ class _SlotCache(dict):
 
 
 class CompiledEngine(Engine):
-    """SI2: runtime engine -- one CUDA graph of the decode step per batch size.
+    """SI2: runtime engine -- one CUDA graph of the decode step per batch size,
+    and one of the B = 1 prefill per prompt length.
 
     The cache a prefill returns and the logits a decode returns live in the
     graph's buffers and are overwritten by the next prefill or decode of the
-    same batch size.
+    same batch size.  The logits ``prefill_one`` returns are overwritten by
+    the next ``prefill_one`` of any length: its graphs share one memory pool.
     """
 
     name = "SI2_compiled"
@@ -209,28 +233,51 @@ class CompiledEngine(Engine):
         self.slot_graphs: List[_DecodeGraph] = []
         self._free: Dict[int, List[_DecodeGraph]] = {}
         self._last: Optional[_DecodeGraph] = None      # the last graph replayed
+        # B = 1 prefill graphs by prompt length, all in one memory pool
+        self.prefill_graphs: Dict[int, _PrefillGraph] = {}
+        self._prefill_pool = None
+        self._prefill_replayed = False
+
+    @property
+    def prefill_captures(self) -> int:
+        return len(self.prefill_graphs)
+
+    @property
+    def prefill_replays(self) -> int:
+        return sum(g.replays for g in self.prefill_graphs.values())
+
+    def _record(self, step, pool=None):
+        """Run ``step`` once eagerly on a side stream (it loads every kernel
+        and lets the allocator settle before capture, as CUDA graphs
+        require), then capture it into a graph (in ``pool`` if given).
+        Returns (the graph, ``step``'s output in its buffers, the launches
+        a replay makes by kernel)."""
+        with torch.no_grad():
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = ops.launch_counts()
+            with torch.cuda.graph(graph, pool=pool):
+                out = step()
+            after = ops.launch_counts()
+        self._sync()
+        return graph, out, {k: after[k] - before[k] for k in after}
 
     def _capture(self, batch: int) -> _DecodeGraph:
         cfg, params = self.cfg, self.params
         t0 = time.perf_counter()
         cache = transformer.init_cache(cfg, batch, self.max_seq, device=self.device)
         tokens = torch.zeros((batch,), dtype=torch.int32, device=self.device)
-        with torch.no_grad():
-            # one eager step on a side stream first: loads every kernel and
-            # lets the allocator settle before capture, as CUDA graphs require
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                transformer.decode_step(params, cfg, cache, tokens)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            before = ops.launch_counts()
-            with torch.cuda.graph(graph):
-                logits, new_cache = transformer.decode_step(params, cfg, cache, tokens)
-                cache["lengths"].copy_(new_cache["lengths"])
-            after = ops.launch_counts()
-        per_replay = {k: after[k] - before[k] for k in after}
-        self._sync()
+
+        def step():
+            logits, new_cache = transformer.decode_step(params, cfg, cache, tokens)
+            cache["lengths"].copy_(new_cache["lengths"])
+            return logits
+
+        graph, logits, per_replay = self._record(step)
         return _DecodeGraph(graph, cache, tokens, logits, per_replay,
                             torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True),
@@ -289,6 +336,48 @@ class CompiledEngine(Engine):
         with torch.no_grad():
             return transformer.prefill(self.params, self.cfg, self._batch(tokens),
                                        self.max_seq, cache=g.cache)
+
+    def _capture_prefill(self, tokens) -> _PrefillGraph:
+        """Capture the B = 1 prefill of ``tokens``' length into the shared
+        pool; its buffers then hold ``tokens`` (the graph is not replayed)."""
+        t0 = time.perf_counter()
+        cache = self._graph(1).cache
+        static = tokens.clone()
+        if self._prefill_pool is None:
+            self._prefill_pool = torch.cuda.graph_pool_handle()
+
+        def step():
+            return transformer.prefill(self.params, self.cfg, self._batch(static),
+                                       self.max_seq, cache=cache)[0]
+
+        graph, logits, per_replay = self._record(step, self._prefill_pool)
+        return _PrefillGraph(graph, static, logits, cache, per_replay,
+                             capture_s=time.perf_counter() - t0)
+
+    def prefill_one(self, tokens):
+        """tokens: (1, S).  On the card, replays the prefill graph of length
+        S, captured at the first call of that length (one eager prefill and
+        the capture, then a replay).  Callers that repeat pass bucketed
+        lengths (``shape_bucket``), so the graphs are one a bucket; an
+        unbucketed caller captures one a distinct length.  A batch of
+        several prompts, and the CPU, take ``generate``'s eager prefill."""
+        tokens = self._tokens(tokens)
+        self._prefill_replayed = False
+        if self.device.type != "cuda" or tokens.shape[0] != 1:
+            return self._prefill(tokens)
+        S = tokens.shape[1]
+        g = self.prefill_graphs.get(S)
+        if g is None:
+            g = self.prefill_graphs[S] = self._capture_prefill(tokens)
+        else:
+            g.tokens.copy_(tokens)
+            g.replays += 1
+            self._prefill_replayed = True
+        g.graph.replay()
+        return g.logits, g.cache
+
+    def last_prefill_replayed(self) -> bool:
+        return self._prefill_replayed
 
     def _decode(self, cache, tokens):
         if self.device.type != "cuda":

@@ -267,6 +267,7 @@ class ContinuousBatchPolicy(SchedulingPolicy):
                 span.enqueued()
                 core.engine._sync()
             span.tokens, span.bucket = S, bucket
+            span.graph = int(core.engine.last_prefill_replayed())
             return (span.seconds,), (tok, sub)
 
         (dt,), out = core.timed(("prefill1", bucket), thunk)

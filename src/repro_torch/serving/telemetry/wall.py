@@ -12,9 +12,11 @@ A span holds its name, its start and end in ``time.perf_counter_ns()``, the
 sequence number of the span open around it (``parent``, -1 at the top), the
 request it serves (``rid``, -1 for none), its tokens, the prompt bucket a
 prefill was padded to, the instant a prefill's work was all enqueued
-(``enqueued_ns``) and the device time of a decode's graph replay
-(``device_ns``); -1 where a field does not apply.  The log is a ring of
-the last :data:`CAPACITY` spans; older ones are counted in ``dropped``.
+(``enqueued_ns``), whether a prefill replayed a captured graph (``graph``:
+1, or 0 for an eager or capturing call) and the device time of a decode's
+graph replay (``device_ns``); -1 where a field does not apply.  The log is
+a ring of the last :data:`CAPACITY` spans; older ones are counted in
+``dropped``.
 
 Always on: a span costs two clock reads and a small object.  While a torch
 profiler runs, each span also enters ``torch.profiler.record_function``
@@ -40,7 +42,7 @@ class Span:
     """One timed interval; a context manager that closes itself."""
 
     __slots__ = ("seq", "name", "start_ns", "end_ns", "parent", "rid", "tokens",
-                 "bucket", "enqueued_ns", "device_ns", "_log", "_rf")
+                 "bucket", "enqueued_ns", "graph", "device_ns", "_log", "_rf")
 
     def __init__(self, log: "WallLog", seq: int, name: str, parent: int, rid: int):
         self.seq = seq
@@ -50,6 +52,7 @@ class Span:
         self.tokens = 0
         self.bucket = -1
         self.enqueued_ns = -1
+        self.graph = -1
         self.device_ns = -1
         self.end_ns = -1
         self._log = log

@@ -711,6 +711,117 @@ def test_si2_whisper_free_slot_past_max_seq_in_a_graph(gen):
     assert not bool(torch.isnan(cache["k"]).any() or torch.isnan(cache["v"]).any())
 
 
+# -- SI2's captured B = 1 prefill --------------------------------------------------------
+
+PREFILL_GRAPH_CASES = [("minitron-4b-smoke", "native"), ("minitron-4b-smoke", "rsm_int8"),
+                       ("mixtral-8x7b-smoke", "native"), ("zamba2-2.7b-smoke", "native"),
+                       ("rwkv6-3b-smoke", "native"), ("whisper-small-smoke", "native")]
+
+
+def _bf16_params(arch, fmt):
+    import dataclasses
+
+    cfg = dataclasses.replace(get_arch(arch), dtype="bfloat16")
+    params = T.init_params(cfg, seed=0, device="cuda")
+    return cfg, quantize_params(params) if fmt == "rsm_int8" else params
+
+
+def _prefill_kernels(cfg, fmt) -> dict:
+    """The hand-written kernels one prefill of ``cfg`` launches."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        want = {"rwkv6_scan": L}
+    elif cfg.family == "hybrid":
+        want = {"flash_attention": L // cfg.attn_every}
+    elif cfg.family == "audio":
+        want = {"flash_attention": cfg.encoder_layers + 2 * L}
+    elif cfg.family == "moe":
+        want = {"flash_attention": L, "moe_gmm": 3 * L}
+    else:
+        want = {"flash_attention": L}
+    if fmt == "rsm_int8":
+        want["int8_matmul"] = 6 * L
+    return want
+
+
+@pytest.mark.parametrize("arch,fmt", PREFILL_GRAPH_CASES)
+def test_si2_prefill_graph_replays_equal_eager_prefill(gen, arch, fmt):
+    """In bf16, as the cells serve: SI2's ``prefill_one`` at interleaved
+    lengths (the graphs share one memory pool) gives the eager prefill's
+    argmax, its logits within the decode-against-forward 2e-2 and its B = 1
+    cache, ``lengths`` included.  The first call of a length captures, a
+    later one replays; the graph launches the hand-written kernels."""
+    cfg, params = _bf16_params(arch, fmt)
+    si2 = CompiledEngine(cfg, params, 640)
+    rng = np.random.default_rng(1)
+    prompts = {S: rng.integers(1, cfg.vocab_size, (1, S)).astype(np.int32)
+               for S in (128, 256, 512)}
+    order = (512, 128, 512, 256, 128, 256)
+    replayed = []
+    for S in order:
+        captures, replays = si2.prefill_captures, si2.prefill_replays
+        logits, cache = si2.prefill_one(prompts[S])
+        with torch.no_grad():
+            want_l, want = T.prefill(params, cfg, si2._batch(si2._tokens(prompts[S])), 640)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.argmax(logits, -1), torch.argmax(want_l, -1)), S
+        torch.testing.assert_close(logits, want_l, atol=2e-2, rtol=2e-2)
+        assert cache is si2.graphs[1].cache and int(cache["lengths"][0]) == S
+        for key, leaf in want.items():
+            torch.testing.assert_close(cache[key], leaf, atol=2e-2, rtol=2e-2, msg=key)
+        replayed.append(si2.last_prefill_replayed())
+        if replayed[-1]:
+            assert (si2.prefill_captures, si2.prefill_replays) == (captures, replays + 1)
+        else:
+            assert (si2.prefill_captures, si2.prefill_replays) == (captures + 1, replays)
+    assert replayed == [False, False, True, False, True, True]
+    assert sorted(si2.prefill_graphs) == [128, 256, 512]
+    for g in si2.prefill_graphs.values():
+        assert g.replays == 1
+        got = {k: n for k, n in g.launches_per_replay.items() if n}
+        assert {k: got.get(k, 0) for k in _prefill_kernels(cfg, fmt)} == _prefill_kernels(cfg, fmt)
+
+
+@pytest.mark.parametrize("arch,fmt", PREFILL_GRAPH_CASES)
+def test_si2_decode_after_a_replayed_prefill_equals_eager(gen, arch, fmt):
+    """Decode steps after a replayed prefill give the tokens an eager engine
+    gives after its own prefill."""
+    cfg, params = _bf16_params(arch, fmt)
+    prompt = np.random.default_rng(2).integers(1, cfg.vocab_size, (1, 128)).astype(np.int32)
+
+    def tokens(engine):
+        logits, cache = engine.prefill_one(prompt)
+        out = [torch.argmax(logits, -1).to(torch.int32)]
+        for _ in range(8):
+            logits, cache = engine.decode_batch(cache, out[-1])
+            out.append(torch.argmax(logits, -1).to(torch.int32))
+        return torch.cat(out).tolist()
+
+    si2 = CompiledEngine(cfg, params, 256)
+    tokens(si2)                         # captures the length's graph
+    got = tokens(si2)
+    assert si2.last_prefill_replayed() and si2.prefill_replays == 1
+    assert got == tokens(EagerEngine(cfg, params, 256))
+
+
+def test_si2_prefill_spans_record_replays(gen):
+    """A continuous batch on SI2: the first admission of a prompt bucket
+    captures (``graph`` 0 on its span), every later one replays (1)."""
+    from repro_torch.serving.request import synth_workload
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler
+
+    cfg = get_arch("minitron-4b-smoke")
+    si2 = CompiledEngine(cfg, T.init_params(cfg, seed=0, device="cuda"), 64)
+    sched = ContinuousBatchScheduler(si2, num_slots=4, max_seq=64)
+    sched.run(synth_workload(6, 8, 5, cfg.vocab_size, rate_per_s=300, seed=4))
+    spans = [s for s in sched.core.wall_log.spans() if s.name == "repro_torch.prefill"]
+    buckets = [s.bucket for s in spans]
+    assert len(spans) == 6
+    assert [s.graph for s in spans] == [int(b in buckets[:i]) for i, b in enumerate(buckets)]
+    assert si2.prefill_captures == len(set(buckets)) == len(si2.prefill_graphs)
+    assert si2.prefill_replays == 6 - len(set(buckets))
+
+
 # -- training: K1's lse, K1's backward, a train step ---------------------------------
 
 

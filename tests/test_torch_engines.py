@@ -94,6 +94,30 @@ def test_prefill_into_a_used_cache_equals_a_fresh_one(served):
         T.prefill(ttree, cfg, {"tokens": short[:1]}, 32, cache=used)
 
 
+@pytest.mark.parametrize("fmt", ["native", "rsm_int8"])
+def test_si2_prefill_one_on_cpu_captures_nothing_and_equals_si1(fmt, served):
+    """On the CPU SI2's B = 1 prefill stays eager: no graph is captured, no
+    call reads as a replay, and its logits and cache are SI1's, at prompt
+    lengths called in an interleaved order."""
+    _, ttree = served[fmt]
+    cfg = get_arch(ARCH)
+    si1 = teng.EagerEngine(cfg, ttree, 32, device="cpu")
+    si2 = teng.CompiledEngine(cfg, ttree, 32, device="cpu")
+    for S in (16, 4, 16, 8):
+        prompt = _prompt(1, S)
+        want_l, want = si1.prefill_one(prompt)
+        got_l, got = si2.prefill_one(prompt)
+        np.testing.assert_array_equal(torch.argmax(got_l, -1).numpy(),
+                                      torch.argmax(want_l, -1).numpy())
+        torch.testing.assert_close(got_l, want_l, rtol=0, atol=0)
+        assert sorted(got) == sorted(want) and int(got["lengths"][0]) == S
+        for key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+        assert not si2.last_prefill_replayed() and not si1.last_prefill_replayed()
+    assert (si2.prefill_captures, si2.prefill_replays) == (0, 0)
+    assert si2.prefill_graphs == {} and si2.graphs == {}
+
+
 def test_generation_timing_helpers_match_reference():
     for args in [(0.5, 1.2, 7, 1), (0.5, 1.2, 7, 4), (0.5, 1.2, 7, 9), (0.1, 0.0, 1, 1)]:
         assert teng.token_landing_s(*args) == jeng.token_landing_s(*args)

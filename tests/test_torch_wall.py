@@ -107,6 +107,15 @@ def test_prefill_counts_its_prompt_and_bucket():
         assert prefills[rid].bucket == stepcache.shape_bucket(n)
 
 
+def test_a_cpu_prefill_span_records_no_graph_replay():
+    """``graph`` on a prefill span says whether the engine replayed a
+    captured prefill: never on the CPU (0); other spans leave it at -1."""
+    core, _, _ = _executed()
+    for s in core.wall_log.spans():
+        assert s.graph == (0 if s.name == "repro_torch.prefill" else -1), s.name
+    assert core.engine.prefill_captures == 0
+
+
 def test_the_virtual_clock_advances_by_the_engine_spans():
     core, _, metrics = _executed()
     spans = core.wall_log.spans()
