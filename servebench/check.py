@@ -3,7 +3,8 @@
 Once the window has closed, a sample of the requests the run finished is
 drawn from the seed: the one with the most served tokens, then others in an
 order the seed shuffles, until ``SAMPLE_TOKENS`` served tokens are in it (at
-most ``SAMPLE_REQUESTS`` requests).  The reference (``servebench/reference``)
+most ``SAMPLE_REQUESTS`` requests).  The reference of the configuration's kind
+(``servebench/reference/<kind>.py``, found by ``servebench/kinds.py``)
 runs once over each prompt, padded as it was served, followed by its served
 tokens, in float32 with TF32 off, and reads at each served token the gap by
 which that token's logit lies below the reference's best logit there.
@@ -22,7 +23,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from servebench.reference.model import Reference, pad_length
+from servebench import kinds
+from servebench.reference.padding import pad_length
 
 SAMPLE_TOKENS = 1024
 SAMPLE_REQUESTS = 12
@@ -67,12 +69,14 @@ def _reference_mode():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def gaps(config: dict, weights: dict, picked, prompts, device) -> Dict[str, float]:
+def gaps(config: dict, weights: dict, picked, prompts, device,
+         root: str = kinds.ROOT) -> Dict[str, float]:
     """The numbers compared, for the served tokens of ``picked``."""
     import torch
 
     _reference_mode()
     seqs, n_prompt, n_scored, served = _sequences(picked, prompts, device)
+    Reference = kinds.reference(config, root)
     ref = Reference(config["model"], weights, config["reference"]["served"])
     with torch.no_grad():
         out = ref.run(seqs, n_prompt, n_scored, [[s] for s in served])
@@ -83,12 +87,14 @@ def gaps(config: dict, weights: dict, picked, prompts, device) -> Dict[str, floa
                                   .float().mean())}
 
 
-def control_gaps(config: dict, weights: dict, picked, prompts, device) -> Dict[str, float]:
+def control_gaps(config: dict, weights: dict, picked, prompts, device,
+                 root: str = kinds.ROOT) -> Dict[str, float]:
     """The same numbers for the tokens the control precision puts first."""
     import torch
 
     _reference_mode()
     seqs, n_prompt, n_scored, _ = _sequences(picked, prompts, device)
+    Reference = kinds.reference(config, root)
     low = Reference(config["model"], weights, config["reference"]["control"])
     with torch.no_grad():
         firsts = [o["argmax"] for o in low.run(seqs, n_prompt, n_scored)]

@@ -1,5 +1,6 @@
-"""Operations and bytes: of each kernel call a step makes, and of the useful
-work of the tokens served.
+"""The ``transformer`` kind's work counts: the operations and bytes of each
+kernel call a step makes, the useful work of the tokens served, and the
+names of the kernels its steps run (``KERNELS``).
 
 A step is what the harness recorded around one timed engine call (see
 ``servebench/serve.py``): a B = 1 admission prefill of a prompt padded to
@@ -19,6 +20,10 @@ bf16 activations and caches, operations as multiply-adds times two.
   reaches all 8 experts but for a chance under 1e-3 a layer), k rows a
   token read and written; three calls a layer.
 
+A kernel's device time is sorted into its family by ``KERNELS``: the first
+pattern that finds the profiled name (K1 ``flash_``, K2 ``decode_``, K3
+``int8_``, K4 ``gmm_`` but not its backward).
+
 The useful work (``step_flops``, for ``mfu``) counts only the real tokens:
 a prompt's own positions, not its padding, and the output tokens of the
 slots that hold a request, each at its real context; weights as 2 x the
@@ -28,9 +33,12 @@ the output head for every output token.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Tuple
 
 BF16 = 2
+KERNELS = (("k1", re.compile(r"::flash_")), ("k2", re.compile(r"::decode_")),
+           ("k3", re.compile(r"::int8_")), ("k4", re.compile(r"::gmm_(?!bwd)")))
 
 
 def _dims(m: dict):

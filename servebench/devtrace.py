@@ -6,7 +6,8 @@ trace to what the metric readers and the result's ``breakdown`` take:
 - ``busy_s``: the union of the intervals in which a kernel, copy or memset
   ran on the device;
 - ``kernel_s``: device seconds of the port's kernels by family, told apart by
-  their names (K1 ``flash_``, K2 ``decode_``, K3 ``int8_``, K4 ``gmm_``);
+  their names with the ``KERNELS`` patterns of the configuration's kind
+  (``servebench/counts/<kind>.py``), which the ``Tracer`` is given;
 - ``device_ops``: the ten operations by name that took the most device time;
 - ``idle_gaps``: the ten longest spans with nothing on the device, each named
   by the innermost host span of the harness open across its middle
@@ -16,16 +17,15 @@ trace to what the metric readers and the result's ``breakdown`` take:
 
 from __future__ import annotations
 
-import re
 from typing import Dict, List, Tuple
 
 HOST_SPANS = ("prefill_one", "decode_batch", "insert", "scheduler")
-FAMILIES = (("k1", re.compile(r"::flash_")), ("k2", re.compile(r"::decode_")),
-            ("k3", re.compile(r"::int8_")), ("k4", re.compile(r"::gmm_(?!bwd)")))
 
 
-def family(name: str):
-    for key, pattern in FAMILIES:
+def family(name: str, kernels):
+    """The key of the first (key, pattern) of ``kernels`` whose pattern
+    finds the device kernel's ``name``, or None."""
+    for key, pattern in kernels:
         if pattern.search(name):
             return key
     return None
@@ -49,6 +49,12 @@ def merge(intervals: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
 
 
 class Tracer:
+    """The profiler over a traced window; ``kernels``: the (family key,
+    pattern) pairs that sort its kernel time."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
     def warm_up(self) -> None:
         """Start and stop the profiler once: its first start loads the
         tracing library, which must not fall inside the window."""
@@ -85,7 +91,7 @@ class Tracer:
             s = (b - a) / 1e9
             key = short_name(name)
             by_kernel[key] = by_kernel.get(key, 0.0) + s
-            fam = family(name)
+            fam = family(name, self.kernels)
             if fam is not None:
                 kernel_s[fam] = kernel_s.get(fam, 0.0) + s
         gaps = [(busy[i + 1][0] - busy[i][1], busy[i][1], busy[i + 1][0])

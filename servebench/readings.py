@@ -6,14 +6,14 @@ carries ``main`` (the window, or a traced run's unprofiled part of it),
 ``traced`` (a traced run's profiled tail, else None), ``device_trace``
 (``servebench.devtrace`` summary of that tail, else None), ``setup_s``,
 ``peaks`` (the card's, ``servebench.card.PEAKS``), ``model`` (the
-configuration's ``model`` object), ``fmt``, ``slots`` and ``max_seq``.
+configuration's ``model`` object), ``counts`` (the work-count module of its
+kind, ``servebench/counts/<kind>.py``), ``fmt``, ``slots`` and ``max_seq``.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
-from servebench import work
 from servebench.stats import percentile
 
 
@@ -48,7 +48,7 @@ def roofline(run, family: str) -> Optional[float]:
     peaks = run.peaks
     bound = 0.0
     for step in run.traced.steps:
-        w = work.kernel_work(run.model, run.fmt, step, run.max_seq).get(family)
+        w = run.counts.kernel_work(run.model, run.fmt, step, run.max_seq).get(family)
         if w is not None:
             bound += max(w[0] / peaks["hbm_bytes_s"], w[1] / peaks["bf16_flops"])
     return 100.0 * bound / t["kernel_s"][family]

@@ -1,4 +1,5 @@
-"""Plain float32 reference of the served decoder models, dense and sparse-expert.
+"""The ``transformer`` kind's plain float32 reference: the served decoder
+models, dense and sparse-expert.
 
 Written from the architectures' equations: token embedding; per layer a
 pre-norm (RMSNorm) grouped-query attention with rotary positions (the
@@ -12,7 +13,8 @@ the program derived from them is read.
 Serving conventions the reference follows, because they are what a request
 is served as (PERF.md, section 4):
 - a prompt is zero-padded at its end to the next power of two, and the
-  padded positions are part of the context;
+  padded positions are part of the context (``padding.pad_length``, which
+  every kind shares);
 - an expert layer over a prompt drops, per expert, the routed rows past its
   capacity (``capacity`` below), taking each token's first choices before any
   second choice; a decoded token is never dropped.  With the capacity factor
@@ -32,11 +34,6 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from servebench.reference import quant
-
-
-def pad_length(n: int) -> int:
-    """The next power of two at or above ``n``."""
-    return 1 << (max(int(n), 1) - 1).bit_length()
 
 
 def capacity(tokens: int, experts: int, k: int, factor: float) -> int:

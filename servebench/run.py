@@ -4,8 +4,10 @@
 
 The cell is an entry of ``workloads`` in ``BENCHMARK.json`` at the root of
 the checkout; its configuration and traffic mix are found by name
-(``servebench/configs/<config>.json``, ``servebench/traffic/<mix>.json``)
-and each metric by its reader (``servebench/metrics/<metric>.py``).  With
+(``servebench/configs/<config>.json``, ``servebench/traffic/<mix>.json``),
+the configuration's reference and work counts by its kind
+(``servebench/kinds.py``), and each metric by its reader
+(``servebench/metrics/<metric>.py``).  With
 ``--trace 0`` the line carries the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics, read from the same kind of run whose
 last seconds are also profiled.  The last line of standard output is one
@@ -43,7 +45,10 @@ TRACED_S = 4.0         # the profiled tail of a traced run, at most a quarter of
 
 
 def load_cell(name: str, root: str = ROOT) -> dict:
-    """The cell ``name`` with its configuration, mix and metric lists."""
+    """The cell ``name`` with its configuration, mix and metric lists; a
+    configuration whose kind has not its two files stops here."""
+    from servebench import kinds
+
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         bench = json.load(f)
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -53,6 +58,10 @@ def load_cell(name: str, root: str = ROOT) -> dict:
     configs = {c["name"]: c for c in bench["configs"]}
     with open(os.path.join(root, configs[cell["config"]]["file"])) as f:
         config = json.load(f)
+    try:
+        kinds.paths(config, root)
+    except LookupError as e:
+        raise SystemExit(f"workload {name!r}: {e}") from None
     with open(os.path.join(root, "servebench", "traffic", f"{cell['traffic']}.json")) as f:
         mix = json.load(f)
 
@@ -64,11 +73,10 @@ def load_cell(name: str, root: str = ROOT) -> dict:
 
 
 def reader(metric: str, root: str = ROOT):
+    from servebench.kinds import load_file
+
     path = os.path.join(root, "servebench", "metrics", f"{metric}.py")
-    spec = importlib.util.spec_from_file_location(f"servebench_metric_{metric}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_file(path, f"servebench_metric_{metric}").read
 
 
 def loaded_forbidden() -> list:
@@ -136,7 +144,7 @@ def main(argv=None) -> int:
     sync = torch.cuda.synchronize
     if args.sweep:
         return sweep(run, args, energy, sync)
-    tracer = Tracer() if args.trace else None
+    tracer = Tracer(run.counts.KERNELS) if args.trace else None
     if tracer is not None:
         tracer.warm_up()
     traced_s = min(TRACED_S, args.seconds / 4) if args.trace else 0.0

@@ -34,8 +34,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from servebench import traffic
-from servebench.reference.model import pad_length
+from servebench import kinds, traffic
+from servebench.reference.padding import pad_length
 
 SLICE_S = 0.1          # serving-timeline seconds between two looks at the wall clock
 ENDPOINT = "cell"
@@ -92,10 +92,14 @@ def make_weights(cfg, seed: int, device) -> dict:
 
 
 class Cell:
-    """One configuration under one traffic mix, set up on ``device``."""
+    """One configuration under one traffic mix, set up on ``device``;
+    ``counts`` is the work-count module of the configuration's kind, found
+    under ``root`` (``servebench/kinds.py``)."""
 
-    def __init__(self, config: dict, mix: dict, seed: int, device, trace: bool = False):
+    def __init__(self, config: dict, mix: dict, seed: int, device, trace: bool = False,
+                 root: str = kinds.ROOT):
         self.config, self.mix, self.seed, self.trace = config, mix, seed, trace
+        self.counts = kinds.counts(config, root)
         self.model = config["model"]
         self.fmt = config["format"]
         self.slots, self.max_seq = mix["slots"], mix["max_seq"]

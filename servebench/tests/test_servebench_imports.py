@@ -32,10 +32,31 @@ def test_no_jax_nor_the_jax_package(path):
     assert cpu_harness not in text.replace("servebench/", "")
 
 
+def servebench_imports(path):
+    """The modules of ``servebench`` that ``path`` imports, by whole name."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names if a.name.split(".")[0] == "servebench")
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module == "servebench":
+                yield from (f"servebench.{a.name}" for a in node.names)
+            elif node.module.split(".")[0] == "servebench":
+                yield node.module
+
+
 def test_the_reference_imports_nothing_of_the_program():
-    for name in ("model.py", "quant.py"):
-        names = set(top_level_imports(os.path.join(HERE, "reference", name)))
-        assert names <= {"__future__", "typing", "torch", "servebench"}, names
+    """Every kind's reference and counts, and what they share, import
+    nothing but torch, the standard library's few, and one another."""
+    paths = [os.path.join(d, f) for part in ("reference", "counts")
+             for d, _, fs in os.walk(os.path.join(HERE, part)) for f in fs if f.endswith(".py")]
+    assert {os.path.basename(p) for p in paths} >= {"transformer.py", "quant.py", "padding.py"}
+    for path in paths:
+        names = set(top_level_imports(path))
+        assert names <= {"__future__", "typing", "re", "torch", "servebench"}, (path, names)
+        for mod in servebench_imports(path):
+            assert mod.startswith(("servebench.reference", "servebench.counts")), (path, mod)
 
 
 def test_the_check_compares_whole_names():

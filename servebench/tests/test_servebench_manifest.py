@@ -131,6 +131,17 @@ def test_configs_state_their_checks_and_precisions(bench):
                 assert cfg["model"][key] == value, (c["name"], key)
 
 
+def test_every_config_states_a_kind_with_its_two_files(bench):
+    for c in bench["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            cfg = json.load(f)
+        kind = cfg["kind"]
+        assert NAME.match(kind) and "." not in kind, (c["name"], kind)
+        for part in ("reference", "counts"):
+            assert os.path.isfile(os.path.join(ROOT, "servebench", part, f"{kind}.py")), (
+                c["name"], part)
+
+
 def test_load_cell_and_readers():
     from servebench import run
 

@@ -1,11 +1,12 @@
-"""Operations and bytes the rooflines and mfu are counted from."""
+"""Operations and bytes the rooflines and mfu are counted from: the
+``transformer`` kind's counts (``servebench/counts/transformer.py``)."""
 
 import json
 import os
 
 import pytest
 
-from servebench import work
+from servebench.counts import transformer as work
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -57,3 +58,45 @@ def test_step_flops_count_real_tokens_only():
 def test_window_caps_pairs():
     assert work._pairs(10, None) == 55
     assert work._pairs(10, 4) == 10 + 6 * 4
+
+
+# Golden values of the three configurations at full width: the numbers the
+# cells' rooflines and mfu have been read from since the cells were first
+# measured, so that a change to the counts shows here.  A prefill of bucket
+# 1024 (700 real tokens) and a decode step of 32 slots at lengths 100-1280,
+# with a 1280-entry cache.
+LENS = [100 + 1180 * i // 31 for i in range(32)]
+PREFILL = {"kind": "prefill", "bucket": 1024, "prompt": 700}
+DECODE = {"kind": "decode", "lens": LENS, "live_ctx": [n + 1 for n in LENS]}
+GOLDEN = {
+    "minitron-4b": {
+        "prefill": {"k1": (536870912.0, 206359756800.0)},
+        "decode": {"k2": (2908749824.0, 8688500736.0)},
+        "flops": (3762192384000.0, 226524266496.0),
+        "active": (2617245696.0, 786432000.0)},
+    "minitron-4b-int8": {
+        "prefill": {"k1": (536870912.0, 206359756800.0),
+                    "k3": (5572657152.0, 5360119185408.0)},
+        "decode": {"k2": (2908749824.0, 8688500736.0),
+                   "k3": (2712141824.0, 167503724544.0)},
+        "flops": (3762192384000.0, 226524266496.0),
+        "active": (2617245696.0, 786432000.0)},
+    "mixtral-8x7b": {
+        "prefill": {"k1": (503316480.0, 206359756800.0),
+                    "k4": (73081552896.0, 17317308137472.0)},
+        "decode": {"k2": (2184708096.0, 8688500736.0),
+                   "k4": (67815604224.0, 541165879296.0)},
+        "flops": (13345128448000.0, 622718222336.0),
+        "active": (9463136256.0, 131072000.0)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN))
+def test_counts_equal_their_golden_values(name):
+    with open(os.path.join(ROOT, "servebench", "configs", f"{name}.json")) as f:
+        cfg = json.load(f)
+    m, fmt, want = cfg["model"], cfg["format"], GOLDEN[name]
+    assert work.kernel_work(m, fmt, PREFILL, 1280) == want["prefill"]
+    assert work.kernel_work(m, fmt, DECODE, 1280) == want["decode"]
+    assert (work.step_flops(m, PREFILL), work.step_flops(m, DECODE)) == want["flops"]
+    assert work.active_params(m) == want["active"]
